@@ -577,7 +577,7 @@ int tpudct_huff_decode(const uint8_t *data, long n, int h, int w, int16_t *out) 
  * Stream v3 (round 4) refines the positional model: SIX AC zig-zag band
  * contexts (k in [1,2] / [3,5] / [6,10] / [11,20] / [21,35] / [36,63])
  * instead of three.  Measured on 512² std-Q maps (entropy-model sweep,
- * benchmarks/RESULTS_v5e.md): -2.6% photo, -3.5% circuit, -1.5% noise
+ * sizes only): -2.6% photo, -3.5% circuit, -1.5% noise
  * net of the three extra tables' overhead; richer schemes (prev-block
  * activity, prev-DC-size, per-position tables) measured worse once
  * table bytes are counted — static tables already capture what those
@@ -940,9 +940,9 @@ long tpudct_rans_encode(const int16_t *coeffs, int h, int w,
                              tabs[c].freq[i])
                 : 0;
     /* v4 interleave is an explicit OPT-IN (interleave == RANS_NSTATES),
-     * not the default: on this 1-core Xeon host the 4-way decoder
-     * measured 0.72-0.89x the serial one (benchmarks/rans_interleave_ab
-     * .py; the decode loop is THROUGHPUT-bound at ~40 cycles/symbol —
+     * not the default: on a 1-core Xeon host the 4-way decoder
+     * measured 0.72-0.89x the serial one (the decode loop is
+     * THROUGHPUT-bound at ~40 cycles/symbol —
      * bit reads, scan branches, block scatter — so removing the ~15-
      * cycle state chain buys nothing and the extra state bookkeeping
      * costs).  The knob stays because the construction is sound and a

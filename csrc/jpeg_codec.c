@@ -1,6 +1,6 @@
 /* Native JPEG codec for tpudct.
  *
- * TPU-native re-design of the reference's host image I/O
+ * Re-design of the reference's host image I/O
  * (load_jpeg_as_matrix, /root/reference/utils.cu:38-95;
  * save_grayscale_jpeg, utils.cu:98-147).  Differences by design:
  *   - decode can force grayscale conversion in-codec (the reference returns

@@ -32,7 +32,7 @@ def _psnr(a, b):
 
 
 def test_upsample_equals_naive_repeat(rng):
-    """The broadcast-reshape upsample forms (chosen for their TPU lowering;
+    """The broadcast-reshape upsample forms (chosen to avoid a gather;
     jnp.repeat is a measured ~342 ms gather at 8192²) must be value-exact
     nearest replication, including odd-crop edges."""
     for h, w in ((8, 8), (9, 13), (64, 96), (17, 31)):
@@ -382,22 +382,21 @@ def test_cli_color_no_subsample(tmp_path, capsys):
     assert meta["chroma_shape"] == (56, 56)
 
 
-# ---- fused Pallas color kernels ---------------------------------------------
+# ---- the u8 color stages (utils.color.split_u8 / merge_u8) ------------------
 
 
 def test_color_pallas_kernels_match_xla(rng):
-    from tpudct.kernels import color_pallas
-
+    """The codec's u8 split/merge vs the float reference helpers."""
     rgb = rng.integers(0, 256, (3, 128, 256)).astype(np.uint8)
     x = jnp.asarray(rgb)
-    y1, cb1, cr1 = color_pallas.color_split_420_u8(x, interpret=True)
+    y1, cb1, cr1 = color.split_u8(x, "420")
     y2, cb2, cr2 = color.ycbcr_split_420_u8(x)
     # pool-then-transform vs transform-then-pool: identical up to f32
     # rounding order (documented .5-tie class) -> at most +-1, rare.
     for a, b, n in ((y1, y2, "y"), (cb1, cb2, "cb"), (cr1, cr2, "cr")):
         d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
         assert d.max() <= 1 and (d > 0).mean() < 0.01, n
-    m1 = color_pallas.color_merge_420_u8(y1, cb1, cr1, interpret=True)
+    m1 = color.merge_u8(y1, cb1, cr1, "420")
     m2 = color.ycbcr_merge_420_u8(y1, cb1, cr1, 128, 256)
     d = np.abs(np.asarray(m1).astype(int) - np.asarray(m2).astype(int))
     assert d.max() <= 1 and (d > 0).mean() < 0.01
@@ -452,7 +451,7 @@ def test_u8_color_rejects_unsupported():
 
 def test_u8_color_ragged_size_rides_fused_path():
     """Kernel padding (VERDICT r2 #1) applies to color too: a ragged size
-    pads to the (64, 256) grid internally, coefficient planes come back at
+    pads to the (16, 16) grid internally, coefficient planes come back at
     the 8-aligned TRUE plane shapes (container-format parity with the f32
     path), and the recon crops to the original size."""
     from tpudct.models.color import (
@@ -475,7 +474,7 @@ def test_u8_color_ragged_size_rides_fused_path():
         planes2, meta2, rec = roundtrip_color_auto(p, jnp.asarray(rgb), cfg)
     finally:
         del p.encode_u8
-    assert calls and calls[0] == (128, 256)  # luma padded to the kernel grid
+    assert calls and calls[0] == (112, 144)  # luma padded to the 16-grid
     rec = np.asarray(rec)
     assert rec.shape == (100, 130, 3) and rec.dtype == np.uint8
     assert _psnr(rec, rgb) > 30
@@ -524,18 +523,17 @@ def test_u8_color_tdcc_serializes():
 
 
 def test_color_kernels_reject_misaligned_shapes():
-    from tpudct.kernels import color_pallas
+    from tpudct.models.color import supports_color_u8
 
-    assert not color_pallas.supports(32, 256)
-    assert not color_pallas.supports(64, 320)
+    p, cfg = get_pipeline("hp"), CodecConfig()
+    assert supports_color_u8(p, cfg, 32, 256)
+    assert not supports_color_u8(p, cfg, 24, 256)  # 4:2:0 chroma not 8-aligned
+    assert not supports_color_u8(p, cfg, 64, 328)
     with pytest.raises(ValueError):
-        color_pallas.color_split_420_u8(jnp.zeros((3, 32, 256), jnp.uint8),
-                                        interpret=True)
-    with pytest.raises(ValueError):
-        color_pallas.color_merge_420_u8(
+        color.merge_u8(
             jnp.zeros((64, 320), jnp.uint8),
-            jnp.zeros((32, 160), jnp.uint8),
-            jnp.zeros((32, 160), jnp.uint8), interpret=True)
+            jnp.zeros((32, 96), jnp.uint8),
+            jnp.zeros((32, 96), jnp.uint8), "420")
 
 
 def test_tdcc_inconsistent_plane_headers_rejected():
@@ -793,9 +791,9 @@ def test_u8_color_auto_dispatch_all_modes():
 
 
 def test_u8_kernels_422_444_match_utils_class():
-    """Kernel-vs-XLA agreement for the new modes (the 4:2:0 analog of
-    test above): within the pool-then-transform f32 tie class (±1)."""
-    from tpudct.kernels import color_pallas
+    """Codec split/merge vs the float reference for 4:2:2 and 4:4:4 (the
+    4:2:0 analog of test above): within the pool-then-transform f32 tie
+    class (±1)."""
     from tpudct.utils import color
 
     rng = np.random.default_rng(11)
@@ -803,7 +801,7 @@ def test_u8_kernels_422_444_match_utils_class():
     r, g, b = (jnp.asarray(x[i], jnp.float32) for i in range(3))
 
     # 4:4:4: pure transform, no resampling
-    y4, cb4, cr4 = color_pallas.color_split_444_u8(x, interpret=True)
+    y4, cb4, cr4 = color.split_u8(x, False)
     yr, cbr, crr = color.ycbcr_from_rgb_planes(r, g, b)
     for a, bref in ((y4, yr), (cb4, cbr), (cr4, crr)):
         d = np.abs(np.asarray(a).astype(int)
@@ -811,7 +809,7 @@ def test_u8_kernels_422_444_match_utils_class():
         assert d.max() <= 1
 
     # 4:2:2: lane-direction pooling only
-    y2, cb2, cr2 = color_pallas.color_split_422_u8(x, interpret=True)
+    y2, cb2, cr2 = color.split_u8(x, "422")
     np.testing.assert_array_equal(np.asarray(y2), np.asarray(y4))
     cbd = color.downsample_422(cbr)
     d = np.abs(np.asarray(cb2).astype(int)
@@ -819,9 +817,9 @@ def test_u8_kernels_422_444_match_utils_class():
     assert d.max() <= 1
 
     # merges invert their splits to within the quantized-u8 class
-    m4 = color_pallas.color_merge_444_u8(y4, cb4, cr4, interpret=True)
+    m4 = color.merge_u8(y4, cb4, cr4, False)
     assert np.abs(np.asarray(m4).astype(int) - np.asarray(x).astype(int)).max() <= 2
-    m2 = color_pallas.color_merge_422_u8(y2, cb2, cr2, interpret=True)
+    m2 = color.merge_u8(y2, cb2, cr2, "422")
     assert m2.shape == x.shape
 
 
@@ -882,7 +880,7 @@ def test_color_batch_single_split_dispatch(rng, monkeypatch):
     # one luma launch + one stacked-chroma launch for the whole chunk
     assert len(calls) == 2
     assert {qt for _, qt in calls} == {"luma", "chroma"}
-    total_hk = sum(-(-(40 + 8 * i) // 64) * 64 for i in range(3))
+    total_hk = sum(-(-(40 + 8 * i) // 16) * 16 for i in range(3))
     assert calls[0][0] == (total_hk, 256)
 
 

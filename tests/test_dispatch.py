@@ -77,8 +77,8 @@ def test_roundtrip_engages_u8_kernels(rng):
         c, r = roundtrip_gray_auto(p, img, CFG)
     finally:
         del p.roundtrip_u8
-    # padded to the int8 kernel grid (32-row, 128-lane multiples)
-    assert calls == [(64, 256)]
+    # padded to the 8x8 block grid only (the kernels mask their edges)
+    assert calls == [(40, 256)]
     assert r.shape == (40, 250) and r.dtype == np.uint8
     # coefficient map cropped back to the 8-aligned container shape
     assert tuple(c.shape) == (40, 256)
@@ -94,7 +94,7 @@ def test_encode_engages_u8_kernels(rng):
         c, (h, w) = encode_gray_auto(p, img, CFG)
     finally:
         del p.encode_u8
-    assert calls == [(64, 256)] and (h, w) == (40, 250)
+    assert calls == [(40, 256)] and (h, w) == (40, 250)
     assert np.asarray(c).dtype == np.int8
 
 
@@ -108,8 +108,8 @@ def test_decode_engages_u8_kernels(rng):
         rec = decode_gray_auto(p, c, CFG, (h, w))
     finally:
         del p.decode_u8
-    # zero-padded from the 8-aligned (40, 256) map up to the kernel grid
-    assert calls == [(64, 256)]
+    # the 8-aligned (40, 256) map needs no kernel-grid padding
+    assert calls == [(40, 256)]
     assert rec.shape == (40, 250)
 
 
@@ -280,8 +280,8 @@ def test_stacked_single_dispatch(rng, monkeypatch):
     )
     dispatch.encode_gray_batch_auto(p, imgs, CFG)
     assert len(calls) == 1
-    # every padded height is a 32-multiple; the stack is their sum
-    assert calls[0] == (sum(-(-(40 + 8 * i) // 32) * 32 for i in range(4)), 256)
+    # every padded height is an 8-multiple; the stack is their sum
+    assert calls[0] == (sum(-(-(40 + 8 * i) // 8) * 8 for i in range(4)), 256)
 
 
 def test_stacked_scaled_decode_bit_identical(rng):

@@ -135,3 +135,31 @@ def test_save_image_refuses_lossy_nonjpeg(tmp_path, gray):
         imageio.save_image(str(tmp_path / "x.webp"), gray)
     with pytest.raises(ValueError, match="unsupported output extension"):
         imageio.save_image(str(tmp_path / "x.gif"), gray)
+
+
+def test_native_loaders_race_free(monkeypatch):
+    """Many threads asking for the native coders at once all get them:
+    threads that arrived while the first one built the library used to
+    see "no library" and pick another entropy stage (save_sharded then
+    wrote bytes that depended on thread timing)."""
+    import sys
+    import threading
+
+    from tpudct.utils import entropy
+
+    monkeypatch.setattr(imageio, "_elib", None)
+    monkeypatch.setattr(imageio, "_elib_tried", False)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        seen = []
+        threads = [threading.Thread(target=lambda: seen.append(entropy.native_entropy_available()))
+                   for _ in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert seen == [True] * 32

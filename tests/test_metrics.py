@@ -520,8 +520,8 @@ def test_rans_v4_interleaved_stream(rng):
     roundtrip through both the native and pure-Python decoders, for
     single- and multi-band layouts, with only the flags byte plus three
     extra seeds per band of size cost over the serial stream.  (v4 is
-    NOT the default — the interleaved decoder measured slower on this
-    host; benchmarks/rans_interleave_ab.py carries the study.)"""
+    NOT the default — the interleaved decoder measured slower on a
+    1-core host.)"""
     from tpudct.utils import entropy
 
     if not entropy.rans_available():

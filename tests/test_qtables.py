@@ -38,9 +38,8 @@ def clean_registry():
     from tpudct.kernels import hp_pallas
 
     hp_pallas._max_coeff.cache_clear()
-    hp_pallas._consts_int.cache_clear()
-    hp_pallas._consts_bf.cache_clear()
-    hp_pallas._consts_f32.cache_clear()
+    hp_pallas._fwd_consts.cache_clear()
+    hp_pallas._inv_consts.cache_clear()
 
 
 def test_register_validates(clean_registry):

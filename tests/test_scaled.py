@@ -361,7 +361,8 @@ def test_fused_scaled_kernel_matches_composed(rng):
 def test_fused_scaled_kernel_gate():
     from tpudct.kernels import hp_pallas
 
-    assert not hp_pallas.supports_scaled_u8(64, 128, 2, 2)   # w % 256 != 0
+    assert hp_pallas.supports_scaled_u8(64, 128, 2, 2)       # masked edges
+    assert not hp_pallas.supports_scaled_u8(64, 132, 2, 2)   # w % 8 != 0
     assert not hp_pallas.supports_scaled_u8(64, 1024, 3, 2)  # bad factor
     assert hp_pallas.supports_scaled_u8(64, 1024, 8, 8)
     assert not hp_pallas.supports_scaled_u8(60, 1024, 2, 2)  # not u8 geometry
@@ -507,8 +508,9 @@ def test_color_scaled_m8_upscale_gate(rng):
 
 
 def test_cli_scale_pads_to_fused_geometry(tmp_path):
-    """A size whose 128-padding is NOT a 128*fc multiple (300 -> 384)
-    must still ride the fused kernel: the CLI pads to (8*f, 128*f)."""
+    """A ragged size (300) must ride the fused kernel on its 8-aligned
+    coefficient map (304x304): the kernel masks its edges, so nothing
+    pads to a kernel grid."""
     from tpudct.cli import main
     from tpudct.kernels import hp_pallas
     from tpudct.utils import imageio
@@ -528,15 +530,14 @@ def test_cli_scale_pads_to_fused_geometry(tmp_path):
         assert main(["decode", "--scale", "1/4", str(tdc), str(out)]) == 0
     finally:
         hp_pallas.hp_scaled_decode_u8 = orig
-    assert calls == [(320, 512)], calls  # padded to (8*4 | 32, 128*4)
+    assert calls == [(304, 304)], calls  # the 8-aligned map itself
     rec = imageio.load_image(str(out))
     assert rec.shape == (75, 75)
-    # the extra padding must not change any cropped pixel: compare with
-    # the composed path on the minimal (32, 128) padding
+    # the masked edge must not change any cropped pixel: compare with the
+    # composed path on a (32, 128)-padded map
     import jax.numpy as jnp
 
     from tpudct import CodecConfig, get_pipeline
-    from tpudct.ops.padding import pad_coeffs_to_kernel
     from tpudct.ops.scaled import box_pool_u8
     from tpudct.ops.transform import to_uint8
     from tpudct.utils import serialize
@@ -546,7 +547,8 @@ def test_cli_scale_pads_to_fused_geometry(tmp_path):
     )
     p = get_pipeline("hp")
     cfg = CodecConfig(q_scale=q_scale, transform=transform, q_table=q_table)
-    cmin, _ = pad_coeffs_to_kernel(jnp.asarray(coeffs, jnp.int8), 32, 128)
+    hc, wc = coeffs.shape
+    cmin = jnp.pad(jnp.asarray(coeffs, jnp.int8), ((0, -hc % 32), (0, -wc % 128)))
     ref = np.asarray(to_uint8(box_pool_u8(p.decode_u8(cmin, cfg), 4)))[:75, :75]
     np.testing.assert_array_equal(rec, ref)
 

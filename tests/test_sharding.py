@@ -35,10 +35,10 @@ def test_sharded_matches_single_chip(name, image256):
     c_sh, r_sh = sharded_roundtrip(p, cfg, mesh)(xs)
     c1, r1 = p.roundtrip(jnp.asarray(image256), cfg)
     # The exact-int-core pipelines (hp, fast) produce bit-identical
-    # coefficients at any shape on the CPU mesh (on TPU, `fast`'s final
-    # f32 scale-multiply can fuse differently under shard_map and tie-flip
-    # ~0.01% of entries by +-1 — measured, same equivalence class as
-    # below).  `batched` is the f32-literal path: 32-row
+    # coefficients at any shape on the CPU mesh (on an accelerator,
+    # `fast`'s final f32 scale-multiply can fuse differently under
+    # shard_map and tie-flip ~0.01% of entries by +-1 — the same
+    # equivalence class as below).  `batched` is the f32-literal path: 32-row
     # bands fall back to the K=8 einsum while the full image takes the
     # K=128 block-diag formulation, so f32 accumulation order differs and
     # exact .5 quantizer ties flip on ~0.03% of coefficients; each flip
@@ -112,68 +112,6 @@ def test_scaling_table_cpu_mesh():
     assert [r["devices"] for r in rows] == [1, 2, 4]
     for r in rows:
         assert r["pair_ms"] >= 0.0 and r["efficiency"] > 0.0
-
-
-def test_ring_all_gather_interpret(image256):
-    """Hand-rolled RDMA ring reassembly (parallel/ring.py) vs the truth."""
-    from tpudct.parallel.ring import ring_all_gather
-
-    mesh = band_mesh()
-    xs = shard_image(jnp.asarray(image256), mesh)
-    full = ring_all_gather(xs, mesh, interpret=True)
-    np.testing.assert_array_equal(np.asarray(full), image256)
-
-
-def test_ring_decode_gather_overlap(image256):
-    """Decode-while-gathering ring (parallel/ring.py): the overlapped
-    in-kernel decode must be bitwise identical to hp_decode_u8 on the
-    gathered coefficient map, and the gathered map itself replicated."""
-    import jax
-
-    from tpudct.kernels.hp_pallas import hp_encode_u8, hp_decode_u8
-    from tpudct.parallel import band_mesh, shard_image
-    from tpudct.parallel.ring import ring_decode_gather
-
-    coeffs = hp_encode_u8(
-        jnp.asarray(image256, jnp.uint8), interpret=True
-    )
-    mesh = band_mesh()
-    cs = jax.device_put(
-        coeffs, jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("band", None))
-    )
-    crep, rec = ring_decode_gather(cs, mesh, interpret=True)
-    np.testing.assert_array_equal(np.asarray(crep), np.asarray(coeffs))
-    ref = hp_decode_u8(coeffs, interpret=True)
-    np.testing.assert_array_equal(np.asarray(rec), np.asarray(ref))
-
-
-def test_ring_decode_color_gather_overlap(rng):
-    """Color decode-while-gathering ring (round 5, parallel/ring.py): the
-    in-kernel luma+chroma decode AND fused 4:2:0 merge hidden under the
-    hops must be bitwise identical to decode_color_u8 of the gathered
-    planes, and both coefficient payloads replicated exactly."""
-    from tpudct.models.color import roundtrip_color_u8
-    from tpudct.parallel.ring import chroma_band_pack, ring_decode_color_gather
-
-    p = get_pipeline("hp")
-    cfg = CodecConfig(interpret=True)
-    rgb = rng.integers(0, 256, (256, 512, 3), dtype=np.uint8)
-    planes, _meta, rec_ref = roundtrip_color_u8(p, jnp.asarray(rgb), cfg)
-    y = np.asarray(planes["y"], np.int8)
-    pack = chroma_band_pack(
-        np.asarray(planes["cb"], np.int8), np.asarray(planes["cr"], np.int8), 8
-    )
-    mesh = band_mesh()
-    yrep, crep, rgb_out = ring_decode_color_gather(
-        shard_image(jnp.asarray(y), mesh),
-        shard_image(jnp.asarray(pack), mesh),
-        mesh, 1.0, "haweel", interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(yrep), y)
-    np.testing.assert_array_equal(np.asarray(crep), pack)
-    np.testing.assert_array_equal(
-        np.moveaxis(np.asarray(rgb_out), 0, -1), np.asarray(rec_ref)
-    )
 
 
 def test_grid_mesh_2d(image256):

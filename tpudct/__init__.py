@@ -1,4 +1,4 @@
-"""tpudct — TPU-native blockwise approximate-DCT image codec framework.
+"""tpudct — blockwise approximate-DCT image codec framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 CUDA codebase GerryDps/CUDA-DCT-IDCT (JPEG-style lossy grayscale compression
@@ -6,8 +6,8 @@ via the Haweel-2016 signed 8x8 approximate DCT).  Four pipeline families
 compute the identical math with different compute strategies (see
 `tpudct.models`), mirroring the reference's four binaries
 (reference: main_cublass.cu, main_cublass_2.cu, main_fastAppr.cu,
-main_newAppr.cu) — but each is designed for the TPU's MXU/VPU/VMEM rather
-than translated from CUDA.
+main_newAppr.cu) — each re-designed in JAX/XLA/Pallas rather than
+translated from CUDA.
 
 Public API
 ----------

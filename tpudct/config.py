@@ -36,36 +36,32 @@ class CodecConfig:
         analog of the README's k=6..10 sweep (README.md:62-69; the reference
         computed these externally — no retention code exists in-repo).
         None = keep all 64 (the "Standard Q" configuration).
-      interpret: force Pallas kernels into interpreter mode (used on
-        non-TPU backends, e.g. the forced-CPU test mesh).
-      exact_int_core: run the hp forward transform as the exact int8
-        Haweel contraction (Ts X Ts^T on the MXU with int32 accumulation;
-        requires integral pixel values, i.e. u8-sourced images — the
-        codec's domain). False bit-mimics the reference's f32 GEMM inputs.
-        Either way results differ only at true .5 quantizer ties.
+      interpret: force Pallas kernels into interpreter mode (an explicit
+        override for tests; otherwise tpudct.kernels.resolve_interpret
+        decides: compiled on "gpu", interpreted on "cpu").
+      exact_int_core: run the hp forward transform as the exact integer
+        Haweel contraction (Ts X Ts^T with fp16 operands and f32
+        accumulation — every value is an integer below 2^11, so exact;
+        meant for integral pixel values, i.e. u8-sourced images — the
+        codec's domain; float pixels are truncated to integers, see
+        models/hp_appr.py F32_ENCODE_WIDTH). False runs T itself in IEEE
+        f32 (the reference's GEMM inputs). On integral pixels the two
+        differ only at true .5 quantizer ties.
       decode_precision: inverse-transform strategy.
-        "butterfly" (default) = hybrid exact inverse: sublane-direction
-        Haweel butterfly (broadcast-FMA VPU ops; every product is
-        x0/+-1/+-2, exact in f32) + lane-direction matmul as an exact
-        3-way bf16 split against the bf16-representable Ts. f32-class
-        accuracy (~4e-5 vs f64 — tighter than "highest"'s own ~4.1e-5)
-        AND the fastest tier measured (8192^2 u8 roundtrip 0.92 ms vs
-        0.98 bf16x3 / 1.47 f32-emulation).
-        "highest" = 12-pass f32 MXU emulation of the reference's f32
-        GEMM inputs, max 5e-4 gray-level error vs f64 — the
-        bit-faithfulness tier for cross-checking against the reference.
-        "high" = manual bf16x3: ~0.01% of pixels shift by +-1 after
-        truncation (MSE delta ~1e-4, inside the <=1e-3 budget).
-        Superseded by "butterfly" (faster AND exact); kept for
-        comparison.
-      band_rows: sublane rows per Pallas grid step (multiple of 8).
-        None (default) = each kernel's measured-best geometry: the u8
-        kernels run (128, 4096), the f32 kernels (256, 2048) — the two
-        paths prefer OPPOSITE geometries by ~3% each in same-session
-        A/Bs at 8192² on v5e (benchmarks/RESULTS_v5e.md variant study).
-        Set explicitly to override both paths.
-      tile_cols: lane columns per Pallas grid step (multiple of 128);
-        None (default) = per-kernel measured best, see band_rows.
+        "butterfly" (default) = exact inverse against the integer core:
+        the row norms fold into the dequant multiply and each f32 operand
+        splits exactly into three bf16 digits, so every product against
+        Ts in {0,+-1,+-2} is exact and only the f32 accumulation rounds
+        (<= 1e-3 gray levels vs f64).
+        "highest" = T itself as IEEE f32 dots, the reference's f32 GEMM
+        inputs — the cross-checking tier.
+        "high" = accepted for compatibility; computed as "butterfly".
+      band_rows: rows per kernel program (a power of two >= 16).
+        None (default) = hp_pallas.DEFAULT_TILE.
+      tile_cols: columns per kernel program (a power of two >= 16);
+        None (default) = hp_pallas.DEFAULT_TILE.  The row operands are
+        tile_cols x tile_cols each: above 128 the roundtrip kernels need
+        more shared memory than an H100 has (compile error).
     """
 
     # NOTE: the 8x8 block edge is structural (constants.BLOCK_SIZE), not a
@@ -79,9 +75,8 @@ class CodecConfig:
     #: reference rule, bit-parity default); theta < 0.5 = deadzone
     #: quantization — AC magnitudes round at |y|/Q + theta, so near-edge
     #: coefficients fall toward zero, trading distortion for cheaper rANS
-    #: symbols.  Measured BD-rate vs the 0.5 baseline (photo/circuit 512²,
-    #: benchmarks/deadzone_study.py): theta=0.35 -> -5.3% / -0.6%;
-    #: theta=0.40 -> -5.0% / -1.4%.  DC always rounds half-away (it is
+    #: symbols (a rate-distortion trade measured on the host, independent
+    #: of the accelerator).  DC always rounds half-away (it is
     #: delta-coded and dense; a DC deadzone buys nothing and shifts block
     #: means).  Encode-side only: dequantization is unchanged, so streams
     #: decode identically everywhere and the header needs no new field.

@@ -179,13 +179,13 @@ def block_diag_Ts(num_blocks: int, ts: np.ndarray | None = None) -> np.ndarray:
 
 
 def block_diag_T(num_blocks: int, transpose: bool = False, dtype=np.float32, t: np.ndarray | None = None) -> np.ndarray:
-    """Block-diagonal expansion of T: the TPU analog of `upgrade_T_matrix`
-    (utils_kernels.cu:60-69), sized for lane tiles rather than whole images.
+    """Block-diagonal expansion of T: the analog of `upgrade_T_matrix`
+    (utils_kernels.cu:60-69), sized for tiles rather than whole images.
 
     With ``num_blocks = 16`` this yields the 128x128 matrix ``BDT`` such that
     for a (128, 128) image tile X holding a 16x16 grid of 8x8 blocks,
     ``BDT @ X @ BDT.T`` applies ``T @ Xb @ T.T`` to every block — two
-    MXU-native matmuls for 256 DCT blocks.
+    matmuls for 256 DCT blocks.
     """
     t = T if t is None else t
     t = t.T if transpose else t
@@ -265,7 +265,7 @@ def _bas_core() -> np.ndarray:
     orthogonal (Ts @ Ts.T = diag(8,4,4,2,8,4,4,2), asserted below).
     36 nonzeros vs rdct's 48 makes it the cheapest DCT-shaped core in
     the registry (28 adds dense, fewer factorized), trading ~0.05 dB on
-    the photo image (benchmarks/RESULTS_v5e.md transform table).  Like
+    the photo image (a rate-distortion figure, host-side).  Like
     every registry entry, diag(d) @ Ts is an exact-inverse transform."""
     ts = np.array([
         [1, 1, 1, 1, 1, 1, 1, 1],

@@ -1,6 +1,34 @@
-"""Pallas/Mosaic TPU kernels (the hand-written device-code tier)."""
+"""Hand-written device kernels (Pallas, Triton route) and the one backend gate.
 
-from tpudct.kernels.hp_pallas import (
+:func:`resolve_interpret` is the single place that decides how a Pallas
+kernel runs: compiled for the card on ``"gpu"``, in the Pallas interpreter
+on ``"cpu"`` (tests and CPU rehearsals), and an error anywhere else.
+``CodecConfig.interpret`` / ``interpret=True`` is an explicit override for
+tests; nothing falls back to the interpreter silently.
+"""
+
+import jax
+
+
+def resolve_interpret(override=None, platform=None) -> bool:
+    """True when Pallas kernels must run in interpret mode.
+
+    ``override`` truthy forces interpret mode; otherwise the platform
+    (default: ``jax.default_backend()``) decides."""
+    if override:
+        return True
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return False
+    if platform == "cpu":
+        return True
+    raise RuntimeError(
+        f"no kernel route for platform {platform!r}: the codec runs compiled "
+        "on 'gpu' and interpreted on 'cpu'"
+    )
+
+
+from tpudct.kernels.hp_pallas import (  # noqa: E402 — needs resolve_interpret
     hp_dct,
     hp_idct,
     hp_roundtrip,
@@ -12,6 +40,7 @@ from tpudct.kernels.hp_pallas import (
 )
 
 __all__ = [
+    "resolve_interpret",
     "hp_dct",
     "hp_idct",
     "hp_roundtrip",

@@ -1,74 +1,52 @@
-"""HpApprDCT fused Pallas TPU kernels — the flagship compute path.
+"""HpApprDCT fused Pallas kernels (Triton route) — the codec's device hot path.
 
-The reference's proposed kernel (main_newAppr.cu:177-211) maps one 8x8
-thread block to one 8x8 image block with T and X staged in shared memory.
-A literal translation would be a terrible TPU program: an 8x8 tile occupies
-1/16 of one (8,128) native register tile and starves the 128x128 MXU.
+The reference kernel (main_newAppr.cu:177-211) maps one 8x8 thread block to
+one 8x8 image block, stages T and the pixels in shared memory, and runs the
+codec as six launches (level shift, DCT, quantize; dequantize, IDCT,
+unshift).  Here one program owns a tile of ``band_rows x tile_cols`` pixels
+and walks it in 16-row strips; each strip runs the WHOLE chain in registers:
+one HBM read of the input, one write per output.
 
-TPU-first formulation
----------------------
+Formulation
+-----------
 
-* A (128, 128) image tile holds a 16x16 grid of DCT blocks.  With
-  ``BDT = blockdiag_16(T)`` (the lane-sized reincarnation of
-  upgrade_T_matrix, utils_kernels.cu:60-69) the blockwise 2-D transform of
-  the whole tile is ``Y = BDT @ X @ BDT.T`` — two MXU-shaped
-  (128-contraction) matmuls process 256 DCT blocks.  The zeros in BDT cost
-  nothing: the systolic array is 128x128 regardless, and the op is
-  HBM-bandwidth-bound.
+* Two 8x8 blocks stacked are the smallest operand Triton's ``dot``
+  accepts (16).  The forward transform of a (16, C) strip is
+  ``blockdiag(Ts, Ts) @ X`` (both 8-row blocks at once) followed by
+  ``X @ blockdiag(Ts^T, ..., Ts^T)`` (C x C): block-diagonal operands
+  never mix two blocks.  Tall narrow tiles (128 x 32 by default: 8 strips
+  of 16 rows, a 32-wide row operand) measured fastest on the card; a
+  16x16 row operand on strips reshaped to (C, 16) was slower, the
+  reshapes costing more than the smaller dot saves.
 
-* Level shift, transform, quantize (and the inverse chain) fuse into ONE
-  kernel — the fusion main_newAppr.cu approximates with shared memory, done
-  at VMEM scope.  ``*_roundtrip`` fuses the ENTIRE codec: one image read,
-  one coefficient write, one reconstruction write.  The reference cannot
-  express this across its 6 kernel launches (main_newAppr.cu:273-279,
-  314-320).
+* ``T = diag(d) @ Ts`` with Ts in {0, +-1, +-2} (constants.py), so the
+  forward contraction is integer arithmetic: level-shifted pixels are in
+  [-128, 127], |Ts X| <= 12 * 128 = 1536 and |Ts X Ts^T| <= 18432.  fp16
+  holds every integer up to 2048, so both contractions run as fp16 operands
+  with f32 accumulation and are EXACT; the row norms, 1/Q, q_scale and the
+  zonal retention mask fold into one f32 scale applied before rounding.
 
-Performance refinements (all measured on v5e, see git history):
+* The inverse operands are not integers after dequantization (Y * d_i *
+  d_l is irrational).  ``butterfly`` (default) folds the row norms into the
+  dequant multiply (X = Ts^T (Y . dd^T) Ts) and splits each f32 operand
+  exactly into three bf16 digits; the products against Ts are exact and
+  accumulate in f32 — f32-class accuracy (<= 1e-3 gray levels vs f64,
+  tests/test_kernels.py).  ``highest`` runs T itself as IEEE f32 dots (the
+  reference's f32 GEMM inputs).  ``high`` is computed as ``butterfly``: the
+  lossy bf16x3 tier existed only to feed a bf16 matrix unit.
 
-* **Exact int8 Haweel core** (``int_core=True``, default): since
-  ``T = D @ Ts`` with Ts entries in {0,+-1,+-2} (constants.py), the forward
-  contraction runs as int8 MXU matmuls with int32 accumulation — exact
-  integer arithmetic, ~4x bf16 throughput, vs 6-pass bf16 emulation for
-  f32-HIGHEST.  The 11-bit intermediate ``Ts @ X`` is digit-split
-  (base 128) into two int8 operands for the second contraction.  Row norms
-  and 1/Q fold into one f32 scale applied at quantization.  Cost measured:
-  +0.12 ms over a pure copy at 8192^2 (f32-HIGHEST: +0.5 ms).
+* Shapes need only 8x8 alignment: the strips are masked at the image edge
+  (a partial 16-row strip or tile holds whole 8x8 blocks on both sides of
+  the mask, and masked lanes load zeros), so no caller pads to a kernel
+  grid.
 
-* **Buffer aliasing**: ``input_output_aliases`` doubles pallas HBM
-  throughput here (copy kernel 1.66 -> 0.81 ms at 8192^2 f32).  Every
-  kernel aliases its image-sized input to a same-shape/dtype output when
-  one exists; XLA inserts a protective copy only if the caller still needs
-  the operand.
+Quantization uses true division semantics with half-away-from-zero rounding
+to match CUDA round(A/Q) (utils_kernels.cu:42); the int path multiplies by
+the exact f32 scale d_i*d_l/(Q*q_scale), whose ties differ from the f64
+ideal only at true .5 boundaries.
 
-* **u8/int8-native variants**: pixels are uint8 and quantized coefficients
-  provably fit int8 at q_scale>=1 (max |c| = max_il sum|T_i| sum|T_l| 128
-  / Q_il ~ 97.2), so the ``*_u8`` kernels move 4x fewer bytes than the
-  f32-staged path the reference uses (convertToFloat, utils.cu:10-15, is a
-  CUDA-era artifact — the TPU path keeps integers until the math needs
-  floats, entirely inside VMEM).
-
-The inverse transform's operands are not integer-representable after
-dequantization (Y*d_i*d_l is irrational), so no int8 core exists for it.
-Three tiers (CodecConfig.decode_precision, benchmarked head-to-head in
-benchmarks/inv_formulations.py):
-
-* ``butterfly`` (default): hybrid exact inverse.  Row norms fold into the
-  dequant multiply (X = Tsᵀ·(Y ⊙ ddᵀ)·Ts), the sublane direction runs as a
-  22-add Haweel butterfly on the VPU (every product ×0/±1/±2 — exact in
-  f32) and the lane direction as THREE bf16 MXU passes: Ts is
-  bf16-representable and the f32 operand splits exactly into three bf16
-  digits.  f32-class accuracy, measured 4.0e-5 vs f64 — tighter than
-  HIGHEST's 4.1e-5 — at ~70% of its time.
-* ``highest``: 12-pass f32 emulation matching the reference's f32 GEMM
-  inputs; the cross-validation tier.  Measured 5e-4 vs f64.
-* ``high``: bf16x3 both-operand split, 0.19 gray-level error — can flip
-  pixel truncation by ±1 on ~0.01% of pixels; the opt-in serving tier.
-
-Quantization uses true division semantics with half-away-from-zero
-rounding to match CUDA round(A/Q) (utils_kernels.cu:42); the int path
-multiplies by the exact f32 scale d_i*d_l/(Q*q_scale), whose ties differ
-from the f64 ideal only at true .5 boundaries (tested census: all
-mismatches are exactly +-1 at |y/q| = 0.5 - 1e-16).
+``roundtrip_u8_xla`` is the same u8 codec written as plain XLA (whole-image
+einsums, no kernel): the reference the kernels are tested and timed against.
 """
 
 from __future__ import annotations
@@ -79,19 +57,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from tpudct.constants import (
-    BLOCK_SIZE,
-    LEVEL_SHIFT,
-    block_diag_T,
-    block_diag_Ts,
-    get_q_table,
-    get_transform,
-)
+from tpudct.constants import BLOCK_SIZE, LEVEL_SHIFT, get_q_table, get_transform
+from tpudct.kernels import resolve_interpret
 
-LANE = 128
+STRIP = 2 * BLOCK_SIZE  # rows (and chunk width) one dot covers: two 8x8 blocks
 _HIGHEST = jax.lax.Precision.HIGHEST
+#: (band_rows, tile_cols) when the config leaves them None: the fastest of
+#: a sweep of tiles at 8192x8192 on an H100 (``chip_smoke.py --tiles``).
+DEFAULT_TILE = (128, 32)
+_NUM_WARPS = 4
+
 
 @functools.lru_cache(maxsize=8)
 def _max_coeff(transform: str = "haweel", q_table: str = "luma") -> float:
@@ -106,400 +83,251 @@ def _max_coeff(transform: str = "haweel", q_table: str = "luma") -> float:
 
 
 def supports(h: int, w: int) -> bool:
-    """f32 kernel constraints: lane dim tiles by 128, sublanes by 8."""
-    return h % BLOCK_SIZE == 0 and w % LANE == 0 and h >= BLOCK_SIZE and w >= LANE
+    """Any 8x8-aligned, non-empty plane: the kernels mask their edges."""
+    return h % BLOCK_SIZE == 0 and w % BLOCK_SIZE == 0 and h > 0 and w > 0
 
 
 def supports_u8(h: int, w: int, q_scale: float = 1.0, transform: str = "haweel", q_table: str = "luma") -> bool:
-    """u8/int8 variants additionally need 32-row tiles (int8 sublane min),
-    an integer-core transform, and coefficients that fit int8."""
+    """u8/int8 variants additionally need an integer-core transform and
+    coefficients that fit int8."""
+    return supports(h, w) and _max_coeff(transform, q_table) / q_scale <= 127.0
+
+
+def supports_scaled_u8(
+    h: int, w: int, fr: int, fc: int, q_scale: float = 1.0,
+    transform: str = "haweel", q_table: str = "luma",
+) -> bool:
+    """Gate for the fused scaled decode: the u8 decode gate plus pooling
+    factors that divide the 8x8 block (windows never straddle blocks)."""
     return (
-        h % 32 == 0
-        and w % LANE == 0
-        and _max_coeff(transform, q_table) / q_scale <= 127.0
+        supports_u8(h, w, q_scale, transform, q_table)
+        and fr in (1, 2, 4, 8)
+        and fc in (1, 2, 4, 8)
     )
 
 
-# Scoped-VMEM budget per grid step (v5e compiler limit: 16 MiB; measured —
-# a (512, 4096) u8-roundtrip tile wanted 30.9 MiB and failed compile).
-# Live intermediates across the kernels bound at ~24 B/element (i32
-# transform intermediate + digit planes + f32 coefficients + consts),
-# so clamp br*tc to keep requests compiling instead of surfacing an XLA
-# stack-allocation error.
-_VMEM_TILE_ELEMS = (14 * 2**20) // 24
+def _tile(h: int, w: int, band_rows, tile_cols):
+    """Resolve the program tile: powers of two >= 16, shrunk to the plane."""
+    br, bc = DEFAULT_TILE
+    br = br if band_rows is None else band_rows
+    bc = bc if tile_cols is None else tile_cols
+    for name, v in (("band_rows", br), ("tile_cols", bc)):
+        if v < STRIP or v & (v - 1):
+            raise ValueError(f"{name} must be a power of two >= {STRIP}, got {v}")
+    fit = lambda n: max(STRIP, pl.next_power_of_2(n))
+    return min(br, fit(h)), min(bc, fit(w))
 
 
-# Measured-best per-kernel-family tile geometry at 8192² on v5e (4/4-trial
-# same-session A/Bs, benchmarks/RESULTS_v5e.md): the u8 kernels prefer
-# (128, 4096) and the f32 kernels (256, 2048), each by ~3%.  Wrappers
-# resolve None (the CodecConfig default) to these.
-_F32_GEOM = (256, 2048)
-_U8_GEOM = (128, 4096)
+# ---------------------------------------------------------------------------
+# Constant operands: block-diagonal transforms (16x16 down the columns,
+# tile-wide along the rows) and per-position tables as (16, tile width)
+# ---------------------------------------------------------------------------
 
 
-def _resolve_geom(band_rows, tile_cols, default):
-    return (
-        default[0] if band_rows is None else band_rows,
-        default[1] if tile_cols is None else tile_cols,
-    )
+def _bd(m8, n: int = STRIP) -> np.ndarray:
+    """blockdiag(m8, ..., m8), n x n."""
+    return np.kron(np.eye(n // BLOCK_SIZE), np.asarray(m8, np.float64))
 
 
-def _geometry(h: int, w: int, band_rows: int, tile_cols: int, row_align: int = BLOCK_SIZE):
-    if h % row_align or w % LANE:
-        raise ValueError(
-            f"kernel needs h % {row_align} == 0 and w % {LANE} == 0, got {h}x{w}"
-        )
-    br = min(band_rows, h)
-    br -= br % row_align
-    tc = min(tile_cols, w)
-    tc -= tc % LANE
-    if br <= 0 or tc <= 0:
-        raise ValueError(
-            f"band_rows/tile_cols must be at least {row_align}/{LANE} "
-            f"(got {band_rows}/{tile_cols})"
-        )
-    while h % br:
-        br -= row_align
-    while w % tc:
-        tc -= LANE
-    # clamp to the scoped-VMEM budget, shrinking the band first (the lane
-    # width is the throughput-critical dimension)
-    while br * tc > _VMEM_TILE_ELEMS and br > row_align:
-        nbr = br // 2 - (br // 2) % row_align
-        while nbr >= row_align and h % nbr:
-            nbr -= row_align
-        if nbr < row_align:
-            break
-        br = nbr
-    while br * tc > _VMEM_TILE_ELEMS and tc > LANE:
-        ntc = tc // 2 - (tc // 2) % LANE
-        while ntc >= LANE and w % ntc:
-            ntc -= LANE
-        if ntc < LANE:
-            break
-        tc = ntc
-    return br, tc
+def _tile2(m8, width: int) -> np.ndarray:
+    """An (8, 8) per-position table repeated to (16, width)."""
+    return np.tile(np.asarray(m8, np.float64), (STRIP // BLOCK_SIZE, width // BLOCK_SIZE))
 
 
-# canonical builder lives in constants.py; keep the private alias for
-# in-module and benchmark callers.
-_block_diag_ts = block_diag_Ts
+@functools.lru_cache(maxsize=64)
+def _fwd_consts(q_scale: float, retain_k, transform: str, q_table: str, int_core: bool,
+                width: int):
+    """(rows operand, cols operand, scale) for the forward chain.
 
-
-@functools.lru_cache(maxsize=32)
-def _consts_f32(br: int, q_scale: float, transform: str = "haweel", q_table: str = "luma"):
-    t = get_transform(transform).t
-    bdt = block_diag_T(br // BLOCK_SIZE, t=t).astype(np.float32)
-    bdl = block_diag_T(LANE // BLOCK_SIZE, t=t).astype(np.float32)
-    qt = np.tile(get_q_table(q_table) * np.float32(q_scale), (br // BLOCK_SIZE, LANE // BLOCK_SIZE)).astype(np.float32)
-    return bdt, bdl, qt
-
-
-@functools.lru_cache(maxsize=32)
-def _consts_bf(br: int, q_scale: float, transform: str = "haweel", q_table: str = "luma"):
-    """Butterfly-inverse consts: dequant scale Q·q_scale·outer(d,d) tiled,
-    plus the lane-sized int8 block-diag Ts for the exact bf16 lane matmul.
-
-    X = Tᵀ·Y·T with T = diag(d)·Ts means X = Tsᵀ·(Y ⊙ ddᵀ)·Ts, so the row
-    norms ride the elementwise dequant multiply and the transform proper is
-    integer-patterned (Ts ∈ {0,±1,±2} — exact in bf16).  Requires an
-    integer-core transform; callers gate on Transform.has_integer_core."""
-    tr = get_transform(transform)
-    if not tr.has_integer_core:
-        raise ValueError(f"butterfly decode needs an integer core; {transform!r} has none")
-    d = tr.d.astype(np.float64)
-    q8 = get_q_table(q_table) * np.float64(q_scale) * np.outer(d, d)
-    qdd = np.tile(q8, (br // BLOCK_SIZE, LANE // BLOCK_SIZE)).astype(np.float32)
-    # Butterfly weight planes: wts[r, k] = Ts[k][r % 8] — the coefficient of
-    # block-row k in output row r, laid out full-height so the sublane
-    # transform is 8 broadcast-FMA ops with no shuffle traffic.
-    wts = np.tile(tr.ts.T.astype(np.float32), (br // BLOCK_SIZE, 1))
-    return qdd, block_diag_Ts(LANE // BLOCK_SIZE, tr.ts), wts
-
-
-@functools.lru_cache(maxsize=32)
-def _consts_int(br: int, q_scale: float, retain_k, transform: str = "haweel", q_table: str = "luma"):
-    """int8 block-diag Ts operands + fused f32 quant scale (row norms, 1/Q,
-    q_scale and the zonal retention mask all folded into one multiplier)."""
+    int core: fp16 blockdiag(Ts) and blockdiag(Ts)^T, and the fused f32
+    multiplier d_i d_l / (Q q_scale) * mask.  f32 core: blockdiag(T),
+    its transpose, and (Q q_scale, mask) for the division form."""
     from tpudct.ops.quant import retention_mask
 
     tr = get_transform(transform)
+    q8 = get_q_table(q_table)
+    mask = retention_mask(retain_k)
+    if int_core:
+        if not tr.has_integer_core:
+            raise ValueError(f"int core requested but {transform!r} has none")
+        d = tr.d.astype(np.float64)
+        scale = np.outer(d, d) / (q8 * q_scale) * mask
+        return (_bd(tr.ts).astype(np.float16), _bd(tr.ts.T, width).astype(np.float16),
+                _tile2(scale, width).astype(np.float32))
+    t = tr.t.astype(np.float32)
+    qt = _tile2(q8 * np.float32(q_scale), width).astype(np.float32)
+    return (_bd(t).astype(np.float32), _bd(t.T, width).astype(np.float32), qt,
+            _tile2(mask, width).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _inv_consts(q_scale: float, transform: str, q_table: str, precision: str,
+                width: int):
+    """(rows operand, cols operand, dequant table) for the inverse chain.
+
+    butterfly: bf16 blockdiag(Ts)^T / blockdiag(Ts) with the row norms
+    folded into the dequant table Q q_scale d_i d_l.  highest: f32
+    blockdiag(T)^T / blockdiag(T) with Q q_scale."""
+    tr = get_transform(transform)
+    q8 = get_q_table(q_table) * np.float64(q_scale)
+    if precision == "highest":
+        t = tr.t.astype(np.float32)
+        return (_bd(t.T).astype(np.float32), _bd(t, width).astype(np.float32),
+                _tile2(get_q_table(q_table) * np.float32(q_scale), width).astype(np.float32))
     if not tr.has_integer_core:
-        raise ValueError(f"int core requested but {transform!r} has none")
-    bdts = block_diag_Ts(br // BLOCK_SIZE, tr.ts)
-    bdts_l = block_diag_Ts(LANE // BLOCK_SIZE, tr.ts)
+        raise ValueError(f"butterfly decode needs an integer core; {transform!r} has none")
     d = tr.d.astype(np.float64)
-    scale8 = np.outer(d, d) / (get_q_table(q_table) * q_scale) * retention_mask(retain_k)
-    scale = np.tile(scale8, (br // BLOCK_SIZE, LANE // BLOCK_SIZE)).astype(np.float32)
-    return bdts, bdts_l, scale
+    return (_bd(tr.ts.T).astype(jnp.bfloat16), _bd(tr.ts, width).astype(jnp.bfloat16),
+            _tile2(q8 * np.outer(d, d), width).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
-# Tile compute (shared by all kernels)
+# Strip math (shared by every kernel; operates on one (16, C) strip)
 # ---------------------------------------------------------------------------
 
 
-def _round_away(z):
-    """round-half-away-from-zero (CUDA round(), utils_kernels.cu:42) as
-    trunc(z + copysign(0.5, z)) — identical results to
-    sign(z)*floor(|z|+0.5) for all f32 z (proven case-by-case incl. ±0),
-    two fewer VPU passes over the tile."""
-    return jnp.trunc(z + jnp.copysign(jnp.float32(0.5), z))
+def _dot(a, b):
+    prec = _HIGHEST if a.dtype == jnp.float32 else None
+    return jnp.dot(a, b, precision=prec, preferred_element_type=jnp.float32)
 
 
-def _dot_b16x3(a, b):
-    """Manual bf16x3 (~Precision.HIGH, which Mosaic does not lower): split
-    both operands into bf16 hi+lo, compute the three significant products
-    on the bf16 MXU path, accumulate in f32.  Max error measured ~0.2 gray
-    levels through the inverse transform — the opt-in fast-decode tier."""
-    f32, b16 = jnp.float32, jnp.bfloat16
-    a_hi = a.astype(b16)
-    a_lo = (a - a_hi.astype(f32)).astype(b16)
-    b_hi = b.astype(b16)
-    b_lo = (b - b_hi.astype(f32)).astype(b16)
-    d = lambda x, y: jax.lax.dot(x, y, preferred_element_type=f32)
-    return d(a_hi, b_hi) + d(a_lo, b_hi) + d(a_hi, b_lo)
+def _rows(m16, x):
+    """m16 @ x: the transform down each column of both 8-row blocks."""
+    return _dot(m16, x.astype(m16.dtype))
 
 
-def _dot_prec(a, b, precision: str):
-    if precision == "high":
-        return _dot_b16x3(a, b)
-    return jax.lax.dot(a, b, precision=_HIGHEST, preferred_element_type=jnp.float32)
+def _cols(x, m):
+    """x @ m, m tile-wide block-diagonal: the transform along each row."""
+    return _dot(x.astype(m.dtype), m)
 
 
-def _fwd_tile_int(x_i8, bdts, bdts_l, scale, out_i8: bool = False):
-    """Exact integer Haweel core: c = round_away((Ts X Ts^T) * scale).
-
-    x_i8: (br, tc) int8 level-shifted pixels.  Returns f32 coefficients,
-    or int8 directly when ``out_i8`` — the f32->i8 convert truncates
-    toward zero, so the round's explicit jnp.trunc pass is dropped and
-    the cast does it: bit-identical (verified on hardware), one fewer
-    full-tile VPU pass per lane chunk (enc_variants.py E7, 0.430 vs
-    0.440 ms same-session at 8192²)."""
-    tc = x_i8.shape[1]
-    u = jax.lax.dot(bdts, x_i8, preferred_element_type=jnp.int32)  # |u| <= 1536
-    # Base-128 digit split so the second contraction stays int8.
-    u1 = jax.lax.shift_right_arithmetic(u + 64, 7)  # in [-12, 12]
-    u0 = u - jax.lax.shift_left(u1, 7)  # in [-64, 63]
-    u1_8, u0_8 = u1.astype(jnp.int8), u0.astype(jnp.int8)
-    bt = bdts_l.T
-    cols = []
-    for t in range(tc // LANE):
-        sl = slice(t * LANE, (t + 1) * LANE)
-        core = (
-            jax.lax.dot(u1_8[:, sl], bt, preferred_element_type=jnp.int32) * 128
-            + jax.lax.dot(u0_8[:, sl], bt, preferred_element_type=jnp.int32)
-        )
-        z = core.astype(jnp.float32) * scale
-        if out_i8:
-            cols.append((z + jnp.copysign(jnp.float32(0.5), z)).astype(jnp.int8))
-        else:
-            cols.append(_round_away(z))
-    return jnp.concatenate(cols, axis=1) if len(cols) > 1 else cols[0]
-
-
-def _fwd_tile_f32(x, bdt, bdl, qt, mask=None):
-    """f32-literal path (bit-mimics the reference's f32 GEMM inputs)."""
-    x = x - LEVEL_SHIFT
-    y = jax.lax.dot(bdt, x, precision=_HIGHEST, preferred_element_type=jnp.float32)
-    tc = x.shape[1]
-    cols = []
-    for t in range(tc // LANE):
-        z = jax.lax.dot(
-            y[:, t * LANE : (t + 1) * LANE], bdl.T, precision=_HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-        c = _round_away(z / qt)
-        if mask is not None:
-            c = c * mask
-        cols.append(c)
-    return jnp.concatenate(cols, axis=1) if len(cols) > 1 else cols[0]
-
-
-def _inv_tile(c, bdt, bdl, qt, precision="highest"):
-    """dequant -> BDT^T @ Y @ BDT -> unshift.
-
-    precision: HIGHEST (default, reference-faithful: max 5e-4 gray-level
-    error vs f64) or HIGH (bf16x3: 2x cheaper, max ~0.2 gray-level error —
-    up to +-1 on reconstructed pixels after truncation; opt-in via
-    CodecConfig.decode_precision for serving paths that tolerate it)."""
-    tc = c.shape[1]
-    cols = []
-    for t in range(tc // LANE):
-        y = c[:, t * LANE : (t + 1) * LANE] * qt
-        cols.append(_dot_prec(y, bdl, precision))
-    y = jnp.concatenate(cols, axis=1) if len(cols) > 1 else cols[0]
-    x = _dot_prec(bdt.T, y, precision)
-    return x + LEVEL_SHIFT
-
-
-def _bf8_sublane(y, wts):
-    """blockdiag(Ts)ᵀ @ y over 8-row blocks along the sublane dim, as eight
-    broadcast-FMA ops on the VPU: out[r] = Σ_k wts[r, k] · y[8⌊r/8⌋ + k],
-    with wts[r, k] = Ts[k][r%8] ∈ {0, ±1, ±2} (exact products in f32, so
-    accuracy is plain f32 addition — tighter than the 6-pass bf16 emulation
-    of an f32 MXU matmul).  The broadcast formulation measured ~2× faster
-    than a 22-add butterfly on slice/stack (Mosaic lowers sublane
-    gather/scatter as shuffle sequences; broadcasts are cheap)."""
-    s_dim, l_dim = y.shape
-    z = y.reshape(s_dim // 8, 8, l_dim)
-    out = None
-    for k in range(8):
-        zk = jnp.broadcast_to(z[:, k : k + 1, :], z.shape).reshape(s_dim, l_dim)
-        term = zk * wts[:, k : k + 1]
-        out = term if out is None else out + term
-    return out
-
-
-def _split3_bf16(a):
-    """Exact 3-way bf16 decomposition of f32: a == a1 + a2 + a3 (24 mantissa
-    bits covered by 3x8).  Each residual subtraction is exact in f32."""
-    f32, b16 = jnp.float32, jnp.bfloat16
-    a1 = a.astype(b16)
-    r1 = a - a1.astype(f32)
-    a2 = r1.astype(b16)
-    a3 = (r1 - a2.astype(f32)).astype(b16)
+def _split3(a):
+    """Exact 3-way bf16 decomposition of f32: a == a1 + a2 + a3."""
+    a1 = a.astype(jnp.bfloat16)
+    r1 = a - a1.astype(jnp.float32)
+    a2 = r1.astype(jnp.bfloat16)
+    a3 = (r1 - a2.astype(jnp.float32)).astype(jnp.bfloat16)
     return a1, a2, a3
 
 
-def _inv_tile_bf(c, qdd, ts_i8, wts):
-    """Hybrid exact inverse: dequant (row norms folded into qdd) →
-    sublane-direction Tsᵀ·M as broadcast-FMA VPU butterfly → lane-direction
-    ·Ts as THREE bf16 MXU passes, exact because Ts ∈ {0,±1,±2} is
-    bf16-representable and the f32 left operand splits exactly into three
-    bf16 digits.  Measured fastest of all inverse formulations on v5e
-    (benchmarks/inv_formulations.py): the exact u8 roundtrip at 8192² runs
-    0.93 ms — faster than BOTH the 12-pass f32 emulation (1.47) and the
-    lossy bf16x3 tier (0.98) — at f32-class accuracy (~4e-5 vs f64,
-    tighter than HIGHEST's own ~4.1e-5)."""
-    ts = ts_i8.astype(jnp.bfloat16)
-    tc = c.shape[1]
-    cols = []
-    for t in range(tc // LANE):
-        m = c[:, t * LANE : (t + 1) * LANE] * qdd
-        u = _bf8_sublane(m, wts)
-        u1, u2, u3 = _split3_bf16(u)
-        d = lambda x: jax.lax.dot(x, ts, preferred_element_type=jnp.float32)
-        cols.append(d(u1) + d(u2) + d(u3) + LEVEL_SHIFT)
-    return jnp.concatenate(cols, axis=1) if len(cols) > 1 else cols[0]
+def _round_away(z):
+    """round-half-away-from-zero (CUDA round(), utils_kernels.cu:42) as an
+    int32: z +- 0.5 truncated by the convert."""
+    return jnp.where(z < 0, z - 0.5, z + 0.5).astype(jnp.int32)
 
 
-def _shift_u8(x_u8):
-    """Level shift for uint8 pixels as a bias flip: (x ^ 0x80) reinterpreted
-    int8 equals x - 128 in two's complement — one VPU op instead of the
-    widen-subtract-narrow chain (sub_matrix_scalar, utils_kernels.cu:8-18,
-    done in the integer domain).  Verified bit-identical on hardware."""
-    return (x_u8 ^ jnp.uint8(0x80)).astype(jnp.int8)
+def _fwd(x, consts, int_core: bool):
+    """Pixel strip (any numeric dtype) -> int32 quantized coefficients."""
+    if int_core:
+        bl, br_, scale = consts
+        # (x - 128) as int8, like the reference's u8 domain (integral input)
+        xs = (x.astype(jnp.int32) - 128).astype(jnp.int8).astype(jnp.float32)
+        y = _cols(_rows(bl, xs), br_)  # exact integers
+        return _round_away(y * scale)
+    bl, br_, qt, mask = consts
+    y = _cols(_rows(bl, x.astype(jnp.float32) - LEVEL_SHIFT), br_)
+    return _round_away(y / qt) * mask.astype(jnp.int32)
+
+
+def _inv(coef, consts):
+    """Quantized coefficient strip -> f32 reconstruction (unclamped)."""
+    bl, br_, qt = consts
+    m = coef.astype(jnp.float32) * qt
+    if bl.dtype == jnp.float32:
+        return _cols(_rows(bl, m), br_) + LEVEL_SHIFT
+    u = sum(_rows(bl, p) for p in _split3(m))
+    return sum(_cols(p, br_) for p in _split3(u)) + LEVEL_SHIFT
 
 
 def _to_u8(x):
-    """clamp + C-truncation cast (convertToUnsignedChar, utils.cu:18-24).
-
-    Via int32: Mosaic has no direct f32->uint8 lowering."""
-    return jnp.clip(jnp.trunc(x), 0.0, 255.0).astype(jnp.int32).astype(jnp.uint8)
+    """clamp + C-truncation cast (convertToUnsignedChar, utils.cu:18-24)."""
+    return jnp.clip(x, 0.0, 255.0).astype(jnp.int32).astype(jnp.uint8)
 
 
-# ---------------------------------------------------------------------------
-# Kernels
-# ---------------------------------------------------------------------------
-
-
-def _k_dct_int(x_ref, a_ref, b_ref, s_ref, o_ref):
-    x = (x_ref[:].astype(jnp.int32) - 128).astype(jnp.int8)
-    o_ref[:] = _fwd_tile_int(x, a_ref[:], b_ref[:], s_ref[:])
-
-
-def _k_dct_f32(x_ref, a_ref, b_ref, q_ref, o_ref):
-    o_ref[:] = _fwd_tile_f32(x_ref[:], a_ref[:], b_ref[:], q_ref[:])
-
-
-def _k_idct(c_ref, a_ref, b_ref, q_ref, o_ref, *, precision="highest"):
-    o_ref[:] = _inv_tile(c_ref[:], a_ref[:], b_ref[:], q_ref[:], precision)
-
-
-def _k_rt_int(x_ref, a_ref, b_ref, s_ref, fa_ref, fb_ref, fq_ref, c_ref, r_ref, *, precision="highest"):
-    x = (x_ref[:].astype(jnp.int32) - 128).astype(jnp.int8)
-    c = _fwd_tile_int(x, a_ref[:], b_ref[:], s_ref[:])
-    c_ref[:] = c
-    r_ref[:] = _inv_tile(c, fa_ref[:], fb_ref[:], fq_ref[:], precision)
-
-
-def _k_rt_f32(x_ref, a_ref, b_ref, q_ref, m_ref, c_ref, r_ref):
-    c = _fwd_tile_f32(x_ref[:], a_ref[:], b_ref[:], q_ref[:], m_ref[:])
-    c_ref[:] = c
-    r_ref[:] = _inv_tile(c, a_ref[:], b_ref[:], q_ref[:])
-
-
-def _k_idct_bf(c_ref, s_ref, t_ref, w_ref, o_ref):
-    o_ref[:] = _inv_tile_bf(c_ref[:], s_ref[:], t_ref[:], w_ref[:])
-
-
-def _k_rt_int_bf(x_ref, a_ref, b_ref, s_ref, qdd_ref, w_ref, c_ref, r_ref):
-    x = (x_ref[:].astype(jnp.int32) - 128).astype(jnp.int8)
-    c = _fwd_tile_int(x, a_ref[:], b_ref[:], s_ref[:])
-    c_ref[:] = c
-    # b_ref (lane-sized int8 block-diag Ts) doubles as the inverse operand.
-    r_ref[:] = _inv_tile_bf(c, qdd_ref[:], b_ref[:], w_ref[:])
-
-
-def _k_rt_f32_bf(x_ref, a_ref, b_ref, q_ref, m_ref, qdd_ref, ts_ref, w_ref, c_ref, r_ref):
-    c = _fwd_tile_f32(x_ref[:], a_ref[:], b_ref[:], q_ref[:], m_ref[:])
-    c_ref[:] = c
-    r_ref[:] = _inv_tile_bf(c, qdd_ref[:], ts_ref[:], w_ref[:])
-
-
-def _k_encode_u8(x_ref, a_ref, b_ref, s_ref, o_ref):
-    x = _shift_u8(x_ref[:])
-    o_ref[:] = _fwd_tile_int(x, a_ref[:], b_ref[:], s_ref[:], out_i8=True)
-
-
-def _k_decode_u8(c_ref, a_ref, b_ref, q_ref, o_ref, *, precision="highest"):
-    o_ref[:] = _to_u8(_inv_tile(c_ref[:].astype(jnp.float32), a_ref[:], b_ref[:], q_ref[:], precision))
-
-
-def _k_rt_u8(x_ref, a_ref, b_ref, s_ref, fa_ref, fb_ref, fq_ref, c_ref, r_ref, *, precision="highest"):
-    x = _shift_u8(x_ref[:])
-    c = _fwd_tile_int(x, a_ref[:], b_ref[:], s_ref[:])
-    c_ref[:] = c.astype(jnp.int8)
-    r_ref[:] = _to_u8(_inv_tile(c, fa_ref[:], fb_ref[:], fq_ref[:], precision))
-
-
-def _k_decode_u8_bf(c_ref, s_ref, t_ref, w_ref, o_ref):
-    o_ref[:] = _to_u8(_inv_tile_bf(c_ref[:].astype(jnp.float32), s_ref[:], t_ref[:], w_ref[:]))
-
-
-def _k_rt_u8_bf(x_ref, a_ref, b_ref, s_ref, qdd_ref, w_ref, c_ref, r_ref):
-    x = _shift_u8(x_ref[:])
-    c = _fwd_tile_int(x, a_ref[:], b_ref[:], s_ref[:])
-    c_ref[:] = c.astype(jnp.int8)
-    r_ref[:] = _to_u8(_inv_tile_bf(c, qdd_ref[:], b_ref[:], w_ref[:]))
+def _pool(x, fr: int, fc: int):
+    """Box average of the clamped, truncated decode over (fr, fc) windows:
+    exact integer sums in f32 (<= 255 * 64 < 2^24), power-of-two divisor."""
+    s, c = x.shape
+    xi = jnp.clip(x, 0.0, 255.0).astype(jnp.int32).astype(jnp.float32)
+    p = xi.reshape(s // fr, fr, c // fc, fc).sum(axis=3).sum(axis=1)
+    return p * jnp.float32(1.0 / (fr * fc))
 
 
 # ---------------------------------------------------------------------------
-# pallas_call plumbing
+# The one kernel body and its pallas_call
 # ---------------------------------------------------------------------------
 
 
-def _call(kernel, h, w, br, tc, consts, out_specs_dtypes, interpret, aliases=None):
-    grid = (h // br, w // tc)
-    img = lambda: pl.BlockSpec((br, tc), lambda i, j: (i, j), memory_space=pltpu.VMEM)
-    const_specs = [
-        pl.BlockSpec(c.shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-        for c in consts
-    ]
-    outs = [jax.ShapeDtypeStruct((h, w), dt) for dt in out_specs_dtypes]
-    single = len(outs) == 1
-    fn = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[img()] + const_specs,
-        out_specs=img() if single else tuple(img() for _ in outs),
-        out_shape=outs[0] if single else tuple(outs),
-        input_output_aliases=aliases or {},
-        interpret=interpret,
+def _kernel(in_ref, *refs, n_fwd, n_inv, outs, br, bc, h, w, fr, fc, int_core):
+    """One program: a (br, bc) tile, walked in 16-row strips.
+
+    ``outs`` names the outputs in order: "coef" (quantized coefficients),
+    "recon" (reconstruction) or "pool" (box-pooled reconstruction)."""
+    fwd_c = [r[...] for r in refs[:n_fwd]]
+    inv_c = [r[...] for r in refs[n_fwd : n_fwd + n_inv]]
+    out_refs = dict(zip(outs, refs[n_fwd + n_inv :]))
+    i, j = pl.program_id(0), pl.program_id(1)
+    c0 = j * bc
+    col_ok = (c0 + jnp.arange(bc))[None, :] < w
+    for s in range(br // STRIP):
+        r0 = i * br + s * STRIP
+        mask = ((r0 + jnp.arange(STRIP))[:, None] < h) & col_ok
+        win = lambda ref: ref.at[pl.ds(r0, STRIP), pl.ds(c0, bc)]
+        x = pltriton.load(win(in_ref), mask=mask, other=jnp.zeros((), in_ref.dtype))
+        if n_fwd:
+            coef = _fwd(x, fwd_c, int_core)
+            if "coef" in out_refs:
+                ref = out_refs["coef"]
+                pltriton.store(win(ref), coef.astype(ref.dtype), mask=mask)
+        else:
+            coef = x
+        if not n_inv:
+            continue
+        rec = _inv(coef, inv_c)
+        if "recon" in out_refs:
+            ref = out_refs["recon"]
+            val = _to_u8(rec) if ref.dtype == jnp.uint8 else rec
+            pltriton.store(win(ref), val, mask=mask)
+        if "pool" in out_refs:
+            ref = out_refs["pool"]
+            p = _pool(rec, fr, fc)
+            pr0 = i * (br // fr) + s * (STRIP // fr)
+            pc0 = j * (bc // fc)
+            pmask = (((pr0 + jnp.arange(STRIP // fr))[:, None] < h // fr)
+                     & ((pc0 + jnp.arange(bc // fc))[None, :] < w // fc))
+            val = p.astype(jnp.int32).astype(jnp.uint8) if ref.dtype == jnp.uint8 else p
+            pltriton.store(
+                ref.at[pl.ds(pr0, STRIP // fr), pl.ds(pc0, bc // fc)], val, mask=pmask
+            )
+
+
+def _run(name, x, fwd, inv, out_dtypes, *, int_core=True,
+         band_rows=None, tile_cols=None, interpret=None, fr=1, fc=1):
+    """fwd/inv: callables width -> constant operands (or None)."""
+    h, w = x.shape
+    if not supports(h, w):
+        raise ValueError(f"kernel needs an 8x8-aligned plane, got {h}x{w}")
+    br, bc = _tile(h, w, band_rows, tile_cols)
+    fwd_consts = fwd(bc) if fwd else ()
+    inv_consts = inv(bc) if inv else ()
+    outs = tuple(out_dtypes)
+    shapes = {"coef": (h, w), "recon": (h, w), "pool": (h // fr, w // fc)}
+    consts = [jnp.asarray(c) for c in (*fwd_consts, *inv_consts)]
+    kernel = functools.partial(
+        _kernel, n_fwd=len(fwd_consts), n_inv=len(inv_consts), outs=outs,
+        br=br, bc=bc, h=h, w=w, fr=fr, fc=fc, int_core=int_core,
     )
-    return fn
-
+    out_shape = tuple(jax.ShapeDtypeStruct(shapes[k], dt) for k, dt in out_dtypes.items())
+    res = pl.pallas_call(
+        kernel,
+        grid=(pl.cdiv(h, br), pl.cdiv(w, bc)),
+        out_shape=out_shape,
+        backend="triton",
+        name=name,
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS, num_stages=1),
+        interpret=resolve_interpret(interpret),
+    )(x, *consts)
+    return res[0] if len(res) == 1 else res
 
 
 def _prec(name: str):
@@ -508,384 +336,165 @@ def _prec(name: str):
             "decode_precision must be 'highest', 'high' or 'butterfly', "
             f"got {name!r}"
         )
-    return name
+    return "butterfly" if name == "high" else name
 
 
 def _jit(*names):
     return functools.partial(jax.jit, static_argnames=names)
 
 
-@_jit("q_scale", "q_table", "band_rows", "tile_cols", "interpret", "int_core", "transform")
-def hp_dct(
-    image,
-    q_scale: float = 1.0,
-    q_table: str = "luma",
-    band_rows=None,
-    tile_cols=None,
-    interpret: bool = False,
-    int_core: bool = True,
-    transform: str = "haweel",
-):
-    """(H, W) f32 image -> (H, W) f32 quantized coefficients, one fused kernel.
-
-    int_core=True runs the exact int8 Haweel contraction (requires integral
-    pixel values, i.e. u8-sourced images — the codec's domain); False runs
-    the f32-literal path matching the reference GEMM inputs bit-for-bit.
-    """
-    h, w = image.shape
-    band_rows, tile_cols = _resolve_geom(band_rows, tile_cols, _F32_GEOM)
-    br, tc = _geometry(h, w, band_rows, tile_cols)
-    if int_core:
-        consts = _consts_int(br, q_scale, None, transform, q_table)
-        kern = _k_dct_int
-    else:
-        consts = _consts_f32(br, q_scale, transform, q_table)
-        kern = _k_dct_f32
-    return _call(kern, h, w, br, tc, consts, [jnp.float32], interpret, {0: 0})(
-        image, *consts
-    )
+_TILE = ("band_rows", "tile_cols", "interpret")
 
 
-@_jit("q_scale", "q_table", "band_rows", "tile_cols", "interpret", "decode_precision", "transform")
-def hp_idct(
-    coeffs,
-    q_scale: float = 1.0,
-    q_table: str = "luma",
-    band_rows=None,
-    tile_cols=None,
-    interpret: bool = False,
-    decode_precision: str = "butterfly",
-    transform: str = "haweel",
-):
+@_jit("q_scale", "q_table", "int_core", "transform", *_TILE)
+def hp_dct(image, q_scale: float = 1.0, q_table: str = "luma", band_rows=None,
+           tile_cols=None, interpret=None, int_core: bool = True,
+           transform: str = "haweel"):
+    """(H, W) f32 image -> (H, W) f32 quantized coefficients, one kernel.
+
+    int_core=True runs the exact integer Haweel contraction (requires
+    integral pixel values, i.e. u8-sourced images — the codec's domain);
+    False runs T itself in IEEE f32 (the reference's GEMM inputs)."""
+    fc = functools.partial(_fwd_consts, q_scale, None, transform, q_table, int_core)
+    return _run("hp_dct", image, fc, None, {"coef": jnp.float32}, int_core=int_core,
+                band_rows=band_rows, tile_cols=tile_cols, interpret=interpret)
+
+
+@_jit("q_scale", "q_table", "decode_precision", "transform", *_TILE)
+def hp_idct(coeffs, q_scale: float = 1.0, q_table: str = "luma", band_rows=None,
+            tile_cols=None, interpret=None, decode_precision: str = "butterfly",
+            transform: str = "haweel"):
     """(H, W) f32 quantized coefficients -> (H, W) f32 reconstruction."""
-    h, w = coeffs.shape
-    band_rows, tile_cols = _resolve_geom(band_rows, tile_cols, _F32_GEOM)
-    br, tc = _geometry(h, w, band_rows, tile_cols)
-    if _prec(decode_precision) == "butterfly":
-        consts = _consts_bf(br, q_scale, transform, q_table)
-        kern = _k_idct_bf
-    else:
-        consts = _consts_f32(br, q_scale, transform, q_table)
-        kern = functools.partial(_k_idct, precision=decode_precision)
-    return _call(kern, h, w, br, tc, consts, [jnp.float32], interpret, {0: 0})(
-        coeffs, *consts
-    )
+    ic = functools.partial(_inv_consts, q_scale, transform, q_table, _prec(decode_precision))
+    return _run("hp_idct", coeffs, None, ic, {"recon": jnp.float32},
+                band_rows=band_rows, tile_cols=tile_cols, interpret=interpret)
 
 
-@_jit("q_scale", "q_table", "retain_k", "band_rows", "tile_cols", "interpret", "int_core", "decode_precision", "transform")
-def hp_roundtrip(
-    image,
-    q_scale: float = 1.0,
-    q_table: str = "luma",
-    retain_k=None,
-    band_rows=None,
-    tile_cols=None,
-    interpret: bool = False,
-    int_core: bool = True,
-    decode_precision: str = "butterfly",
-    transform: str = "haweel",
-):
+@_jit("q_scale", "q_table", "retain_k", "int_core", "decode_precision", "transform", *_TILE)
+def hp_roundtrip(image, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,
+                 band_rows=None, tile_cols=None, interpret=None, int_core: bool = True,
+                 decode_precision: str = "butterfly", transform: str = "haweel"):
     """Fully fused codec pass: f32 image -> (f32 coefficients, f32 recon).
-
-    One kernel, one HBM read of the image, one write per output; zonal
-    retention rides the quantization scale (int path) or a mask multiply
-    (f32 path).  The image buffer is aliased to the reconstruction.
-    """
-    from tpudct.ops.quant import retention_mask
-
-    h, w = image.shape
-    band_rows, tile_cols = _resolve_geom(band_rows, tile_cols, _F32_GEOM)
-    br, tc = _geometry(h, w, band_rows, tile_cols)
-    butterfly = _prec(decode_precision) == "butterfly"
-    if int_core:
-        iconsts = _consts_int(br, q_scale, retain_k, transform, q_table)
-        if butterfly:
-            # qdd + weight planes extra: iconsts already carries the Ts.
-            qdd, _, wts = _consts_bf(br, q_scale, transform, q_table)
-            consts = (*iconsts, qdd, wts)
-            kern = _k_rt_int_bf
-        else:
-            consts = (*iconsts, *_consts_f32(br, q_scale, transform, q_table))
-            kern = functools.partial(_k_rt_int, precision=decode_precision)
-    else:
-        fconsts = _consts_f32(br, q_scale, transform, q_table)
-        mask = np.tile(
-            retention_mask(retain_k), (br // BLOCK_SIZE, LANE // BLOCK_SIZE)
-        ).astype(np.float32)
-        if butterfly:
-            consts = (*fconsts, mask, *_consts_bf(br, q_scale, transform, q_table))
-            kern = _k_rt_f32_bf
-        else:
-            consts = (*fconsts, mask)
-            kern = _k_rt_f32
-    return _call(
-        kern, h, w, br, tc, consts, [jnp.float32, jnp.float32], interpret, {0: 1}
-    )(image, *consts)
+    One read of the image, one write per output; zonal retention rides
+    the quantization scale (int core) or a mask multiply (f32 core)."""
+    fc = functools.partial(_fwd_consts, q_scale, retain_k, transform, q_table, int_core)
+    ic = functools.partial(_inv_consts, q_scale, transform, q_table, _prec(decode_precision))
+    return _run("hp_roundtrip", image, fc, ic,
+                {"coef": jnp.float32, "recon": jnp.float32}, int_core=int_core,
+                band_rows=band_rows, tile_cols=tile_cols, interpret=interpret)
 
 
-@_jit("q_scale", "q_table", "retain_k", "band_rows", "tile_cols", "interpret", "transform")
-def hp_encode_u8(
-    image_u8,
-    q_scale: float = 1.0,
-    q_table: str = "luma",
-    retain_k=None,
-    band_rows=None,
-    tile_cols=None,
-    interpret: bool = False,
-    transform: str = "haweel",
-):
-    """(H, W) uint8 image -> (H, W) int8 quantized coefficients.
-
-    4x less HBM traffic than the f32-staged path; valid whenever
-    supports_u8 holds (coefficients provably fit int8)."""
-    h, w = image_u8.shape
-    band_rows, tile_cols = _resolve_geom(band_rows, tile_cols, _U8_GEOM)
-    br, tc = _geometry(h, w, band_rows, tile_cols, row_align=32)
-    consts = _consts_int(br, q_scale, retain_k, transform, q_table)
-    return _call(_k_encode_u8, h, w, br, tc, consts, [jnp.int8], interpret)(
-        image_u8, *consts
-    )
+@_jit("q_scale", "q_table", "retain_k", "transform", *_TILE)
+def hp_encode_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,
+                 band_rows=None, tile_cols=None, interpret=None,
+                 transform: str = "haweel"):
+    """(H, W) uint8 image -> (H, W) int8 quantized coefficients; valid
+    whenever supports_u8 holds (coefficients provably fit int8)."""
+    fc = functools.partial(_fwd_consts, q_scale, retain_k, transform, q_table, True)
+    return _run("hp_encode_u8", image_u8, fc, None, {"coef": jnp.int8},
+                band_rows=band_rows, tile_cols=tile_cols, interpret=interpret)
 
 
-@_jit("q_scale", "q_table", "band_rows", "tile_cols", "interpret", "decode_precision", "transform")
-def hp_decode_u8(
-    coeffs_i8,
-    q_scale: float = 1.0,
-    q_table: str = "luma",
-    band_rows=None,
-    tile_cols=None,
-    interpret: bool = False,
-    decode_precision: str = "butterfly",
-    transform: str = "haweel",
-):
+@_jit("q_scale", "q_table", "decode_precision", "transform", *_TILE)
+def hp_decode_u8(coeffs_i8, q_scale: float = 1.0, q_table: str = "luma", band_rows=None,
+                 tile_cols=None, interpret=None, decode_precision: str = "butterfly",
+                 transform: str = "haweel"):
     """(H, W) int8 coefficients -> (H, W) uint8 reconstruction (fused
     dequant + inverse + unshift + clamp + cast)."""
-    h, w = coeffs_i8.shape
-    band_rows, tile_cols = _resolve_geom(band_rows, tile_cols, _U8_GEOM)
-    br, tc = _geometry(h, w, band_rows, tile_cols, row_align=32)
-    if _prec(decode_precision) == "butterfly":
-        consts = _consts_bf(br, q_scale, transform, q_table)
-        kern = _k_decode_u8_bf
-    else:
-        consts = _consts_f32(br, q_scale, transform, q_table)
-        kern = functools.partial(_k_decode_u8, precision=decode_precision)
-    return _call(kern, h, w, br, tc, consts, [jnp.uint8], interpret)(
-        coeffs_i8, *consts
-    )
+    ic = functools.partial(_inv_consts, q_scale, transform, q_table, _prec(decode_precision))
+    return _run("hp_decode_u8", coeffs_i8, None, ic, {"recon": jnp.uint8},
+                band_rows=band_rows, tile_cols=tile_cols, interpret=interpret)
 
 
-@_jit("q_scale", "q_table", "retain_k", "band_rows", "tile_cols", "interpret", "decode_precision", "transform")
-def hp_roundtrip_u8(
-    image_u8,
-    q_scale: float = 1.0,
-    q_table: str = "luma",
-    retain_k=None,
-    band_rows=None,
-    tile_cols=None,
-    interpret: bool = False,
-    decode_precision: str = "butterfly",
-    transform: str = "haweel",
-):
+@_jit("q_scale", "q_table", "retain_k", "decode_precision", "transform", *_TILE)
+def hp_roundtrip_u8(image_u8, q_scale: float = 1.0, q_table: str = "luma", retain_k=None,
+                    band_rows=None, tile_cols=None, interpret=None,
+                    decode_precision: str = "butterfly", transform: str = "haweel"):
     """Fully fused u8-native codec pass: uint8 image -> (int8 coefficients,
-    uint8 reconstruction).  192 MB total HBM traffic at 8192^2 vs 768 MB
-    for the f32-staged separate-phase flow; image aliased to recon."""
-    h, w = image_u8.shape
-    band_rows, tile_cols = _resolve_geom(band_rows, tile_cols, _U8_GEOM)
-    br, tc = _geometry(h, w, band_rows, tile_cols, row_align=32)
-    iconsts = _consts_int(br, q_scale, retain_k, transform, q_table)
-    if _prec(decode_precision) == "butterfly":
-        qdd, _, wts = _consts_bf(br, q_scale, transform, q_table)
-        consts = (*iconsts, qdd, wts)
-        kern = _k_rt_u8_bf
-    else:
-        consts = (*iconsts, *_consts_f32(br, q_scale, transform, q_table))
-        kern = functools.partial(_k_rt_u8, precision=decode_precision)
-    return _call(
-        kern, h, w, br, tc, consts,
-        [jnp.int8, jnp.uint8], interpret, {0: 1},
-    )(image_u8, *consts)
+    uint8 reconstruction); 3 bytes of HBM traffic per pixel."""
+    fc = functools.partial(_fwd_consts, q_scale, retain_k, transform, q_table, True)
+    ic = functools.partial(_inv_consts, q_scale, transform, q_table, _prec(decode_precision))
+    return _run("hp_roundtrip_u8", image_u8, fc, ic,
+                {"coef": jnp.int8, "recon": jnp.uint8},
+                band_rows=band_rows, tile_cols=tile_cols, interpret=interpret)
 
 
-# ---------------------------------------------------------------------------
-# Fused fractional-scale decode (round 3)
-# ---------------------------------------------------------------------------
-#
-# decode --scale thumbnails gigapixel mosaics; the XLA composition
-# (hp_decode_u8 + ops.scaled.box_pool_u8) pays a full-size u8 store + reload
-# + a bf16 re-materialization — measured 2.76/1.96 ms at 8192² (f=2/f=8,
-# slope protocol, benchmarks/scaled_ab.py).  Fusing the pool into the decode
-# kernel stores only the (H/f, W/f) raster: 0.72/0.65 ms same-session —
-# 3.0-3.8x — and bit-exact vs the composed form on the real chip.  Contract
-# = ops.scaled.scaled_decode_u8's: the box average of the CLAMPED,
-# C-TRUNCATED full decode.
-
-
-@functools.lru_cache(maxsize=16)
-def _pool_lane_group(fc: int) -> np.ndarray:
-    """(128*fc, 128) 0/1 matrix: output lane j sums input lanes
-    j*fc .. j*fc+fc-1 of a 128*fc-wide group."""
-    m = np.zeros((LANE * fc, LANE), np.float32)
-    for k in range(LANE * fc):
-        m[k, k // fc] = 1.0
-    return m
-
-
-@functools.lru_cache(maxsize=32)
-def _pool_sublane(br: int, fr: int) -> np.ndarray:
-    """(br/fr, br) 0/1 row-pooling matrix."""
-    m = np.zeros((br // fr, br), np.float32)
-    for i in range(br // fr):
-        m[i, i * fr : (i + 1) * fr] = 1.0
-    return m
-
-
-def _k_scaled_decode_u8_bf(c_ref, s_ref, t_ref, w_ref, pl_ref, pr_ref, o_ref,
-                           *, fr: int, fc: int, out_u8: bool = False):
-    x = _inv_tile_bf(c_ref[:].astype(jnp.float32), s_ref[:], t_ref[:], w_ref[:])
-    xi = jnp.clip(jnp.trunc(x), 0.0, 255.0)  # the truncated decode, as f32
-    br, tc = xi.shape
-    if fc > 1:
-        # lane pool: bf16 dot per 128*fc-wide group — xi values <= 255 are
-        # bf16-exact and the MXU accumulates in f32, so sums are exact
-        g = LANE * fc
-        xb = xi.astype(jnp.bfloat16)
-        pm = pl_ref[:].astype(jnp.bfloat16)
-        cols = [
-            jax.lax.dot(xb[:, t * g : (t + 1) * g], pm,
-                        preferred_element_type=jnp.float32)
-            for t in range(tc // g)
-        ]
-        s = jnp.concatenate(cols, axis=1) if len(cols) > 1 else cols[0]
-    else:
-        s = xi
-    if fr > 1:
-        # sublane pool: 0/1 matrix from the left.  The operand is exact
-        # INTEGER f32 (<= 255*fc <= 2040 < 2^11), so it splits into base-256
-        # digits that are individually bf16-exact: hi <= 7 and lo <= 255
-        # both fit bf16's 8 mantissa bits — 2 dots, not the generic f32
-        # 3-digit split (and at fc == 1 the values are already <= 255, ONE
-        # bf16-exact dot).  Each dot accumulates in f32 against 0/1
-        # weights, so the pooled sums stay exact.
-        pr = pr_ref[:].astype(jnp.bfloat16)
-        d = lambda a: jax.lax.dot_general(
-            pr, a, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        if fc == 1:
-            s = d(s.astype(jnp.bfloat16))
-        else:
-            hi = jnp.floor(s * jnp.float32(1.0 / 256.0))
-            lo = s - hi * jnp.float32(256.0)
-            s = d(hi.astype(jnp.bfloat16)) * jnp.float32(256.0) + d(
-                lo.astype(jnp.bfloat16)
-            )
-    avg = s * jnp.float32(1.0 / (fr * fc))
-    if out_u8:
-        # In-kernel u8 store (VERDICT r3 #4): bit-identical to
-        # to_uint8(avg) with no extra VPU pass — `s` is an exact integer
-        # f32 (sum of clamped truncated pixels, <= 255*fr*fc < 2^14) and
-        # 1/(fr*fc) is a power of two, so `avg` is exact, non-negative and
-        # <= 255; clip is a no-op and the f32->i32 convert IS the
-        # truncation (same truncless-cast argument as _fwd_tile_int's
-        # out_i8 — verified bit-exact on hardware there and for this
-        # kernel in tests/test_scaled.py + the bench family gate).
-        o_ref[:] = avg.astype(jnp.int32).astype(jnp.uint8)
-    else:
-        o_ref[:] = avg
-
-
-def scaled_pad_align(fr: int, fc: int) -> tuple:
-    """(row, lane) padding multiples that make any coefficient map satisfy
-    :func:`supports_scaled_u8` at factors (fr, fc) — the single source of
-    truth for the CLI/color pad-to-fused-geometry callers (zero blocks
-    decode to the level shift; pooled windows inside the crop never reach
-    them — ops/padding.py)."""
-    return max(32, 8 * fr), LANE * fc
-
-
-def supports_scaled_u8(
-    h: int, w: int, fr: int, fc: int, q_scale: float = 1.0,
-    transform: str = "haweel", q_table: str = "luma",
-) -> bool:
-    """Gate for the fused scaled decode: the u8 decode geometry plus lane
-    groups of 128*fc (so pooled tiles stay 128-lane aligned) and 8-row
-    output tiles."""
-    return (
-        supports_u8(h, w, q_scale, transform, q_table)
-        and fr in (1, 2, 4, 8)
-        and fc in (1, 2, 4, 8)
-        and w % (LANE * fc) == 0
-        and (h // fr) % 8 == 0
-    )
-
-
-@_jit("fr", "fc", "q_scale", "q_table", "band_rows", "tile_cols", "interpret",
-      "transform", "out_u8")
-def hp_scaled_decode_u8(
-    coeffs_i8,
-    fr: int,
-    fc: int,
-    q_scale: float = 1.0,
-    q_table: str = "luma",
-    band_rows=None,
-    tile_cols=None,
-    interpret: bool = False,
-    transform: str = "haweel",
-    out_u8: bool = False,
-):
+@_jit("fr", "fc", "q_scale", "q_table", "transform", "out_u8", *_TILE)
+def hp_scaled_decode_u8(coeffs_i8, fr: int, fc: int, q_scale: float = 1.0,
+                        q_table: str = "luma", band_rows=None, tile_cols=None,
+                        interpret=None, transform: str = "haweel", out_u8: bool = False):
     """(H, W) int8 coefficients -> (H/fr, W/fc) scaled raster in ONE
-    kernel: dequant + exact butterfly inverse + clamp/truncate + exact
-    integer box pool (djpeg -scale analog at the kernel level).  Bitwise
-    identical to box_pool_u8(hp_decode_u8(c)) — the composed path this
-    fuses (tests/test_scaled.py).
+    kernel: the butterfly decode with a box-pooling epilogue, so the
+    full-size raster is never stored.  Bitwise identical to
+    box_pool_u8(hp_decode_u8(c)) — the composed path (tests/test_scaled.py).
 
     out_u8=False returns the float32 box averages (the color path's
     contract — the fractional averages feed the YCbCr merge unrounded);
-    out_u8=True truncates in the epilogue and stores uint8 directly —
-    bit-identical to to_uint8(f32 output) with 4x less output traffic and
-    no post-pass (the gray `decode --scale` path, VERDICT r3 #4)."""
+    out_u8=True truncates in the epilogue and stores uint8 — bit-identical
+    to to_uint8 of the f32 output (the sums are exact integers and the
+    divisor a power of two)."""
     h, w = coeffs_i8.shape
     if not supports_scaled_u8(h, w, fr, fc, q_scale, transform, q_table):
         raise ValueError(
-            f"fused scaled decode needs the u8 geometry, w % {LANE * fc} == 0 "
-            f"and factors in (1, 2, 4, 8); got {h}x{w} at ({fr}, {fc})"
+            f"fused scaled decode needs the u8 gate and factors in (1, 2, 4, 8); "
+            f"got {h}x{w} at ({fr}, {fc})"
         )
-    band_rows, tile_cols = _resolve_geom(band_rows, tile_cols, _U8_GEOM)
-    br, tc = _geometry(h, w, band_rows, tile_cols, row_align=32)
-    # Shrink the resolved geometry to the pool alignments (tiles must hold
-    # whole 128*fc lane groups / 8*fr row windows).  The gate above
-    # guarantees the minimal tiles (LANE*fc, lcm(32, 8*fr)) always fit, so
-    # the searches bottom out there instead of underflowing (a user
-    # tile_cols/band_rows below the alignment lands on the minimum).
-    t_lo, b_lo = LANE * fc, max(32, 8 * fr)
-    while tc > t_lo and (tc % t_lo or w % tc):
-        tc -= LANE
-    if tc <= t_lo or tc % t_lo or w % tc:
-        tc = t_lo
-    while br > b_lo and (br % (8 * fr) or h % br):
-        br -= 32
-    if br <= b_lo or br % (8 * fr) or h % br:
-        br = b_lo
-    assert w % tc == 0 and h % br == 0  # supports_scaled_u8 guarantees
-    qdd, bdts_l, wts = _consts_bf(br, q_scale, transform, q_table)
-    pl_m = _pool_lane_group(fc)
-    pr_m = _pool_sublane(br, fr)
-    consts = (qdd, bdts_l, wts, pl_m, pr_m)
-    grid = (h // br, w // tc)
-    const_specs = [
-        pl.BlockSpec(c.shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-        for c in consts
-    ]
-    fn = pl.pallas_call(
-        functools.partial(_k_scaled_decode_u8_bf, fr=fr, fc=fc, out_u8=out_u8),
-        grid=grid,
-        in_specs=[pl.BlockSpec((br, tc), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM)] + const_specs,
-        out_specs=pl.BlockSpec((br // fr, tc // fc), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (h // fr, w // fc), jnp.uint8 if out_u8 else jnp.float32
-        ),
-        interpret=interpret,
-    )
-    return fn(coeffs_i8, *consts)
+    ic = functools.partial(_inv_consts, q_scale, transform, q_table, "butterfly")
+    return _run("hp_scaled_decode_u8", coeffs_i8, None, ic,
+                {"pool": jnp.uint8 if out_u8 else jnp.float32},
+                band_rows=band_rows, tile_cols=tile_cols, interpret=interpret,
+                fr=fr, fc=fc)
+
+
+# ---------------------------------------------------------------------------
+# Plain-XLA reference of the u8 codec (no kernel)
+# ---------------------------------------------------------------------------
+
+
+def _blocks(x):
+    h, w = x.shape
+    return x.reshape(h // BLOCK_SIZE, BLOCK_SIZE, w // BLOCK_SIZE, BLOCK_SIZE)
+
+
+def _unblocks(g):
+    a, _, b, _ = g.shape
+    return g.reshape(a * BLOCK_SIZE, b * BLOCK_SIZE)
+
+
+@_jit("q_scale", "q_table", "retain_k", "transform")
+def encode_u8_xla(image_u8, q_scale: float = 1.0, q_table: str = "luma",
+                  retain_k=None, transform: str = "haweel"):
+    """hp_encode_u8 as whole-image XLA: the integer-core einsum in f32
+    (exact: every product and partial sum is an integer below 2^24)."""
+    from tpudct.ops.quant import retention_mask
+
+    tr = get_transform(transform)
+    d = tr.d.astype(np.float64)
+    scale = (np.outer(d, d) / (get_q_table(q_table) * q_scale)
+             * retention_mask(retain_k)).astype(np.float32)
+    ts = jnp.asarray(tr.ts, jnp.float32)
+    x = _blocks(image_u8.astype(jnp.float32) - LEVEL_SHIFT)
+    y = jnp.einsum("ij,ajbk,lk->aibl", ts, x, ts, precision=_HIGHEST)
+    z = y * jnp.asarray(scale)[None, :, None, :]
+    return _unblocks(_round_away(z).astype(jnp.int8))
+
+
+@_jit("q_scale", "q_table", "transform")
+def decode_u8_xla(coeffs_i8, q_scale: float = 1.0, q_table: str = "luma",
+                  transform: str = "haweel"):
+    """hp_decode_u8 (butterfly) as whole-image XLA: Ts^T (C . Q dd^T) Ts in
+    f32 with exact products."""
+    tr = get_transform(transform)
+    d = tr.d.astype(np.float64)
+    qdd = (get_q_table(q_table) * np.float64(q_scale) * np.outer(d, d)).astype(np.float32)
+    ts = jnp.asarray(tr.ts, jnp.float32)
+    m = _blocks(coeffs_i8.astype(jnp.float32)) * jnp.asarray(qdd)[None, :, None, :]
+    x = jnp.einsum("ji,ajbk,kl->aibl", ts, m, ts, precision=_HIGHEST)
+    return _to_u8(_unblocks(x) + LEVEL_SHIFT)
+
+
+def roundtrip_u8_xla(image_u8, q_scale: float = 1.0, q_table: str = "luma",
+                     retain_k=None, transform: str = "haweel"):
+    """hp_roundtrip_u8 as plain XLA: (int8 coefficients, uint8 recon)."""
+    c = encode_u8_xla(image_u8, q_scale, q_table, retain_k, transform)
+    return c, decode_u8_xla(c, q_scale, q_table, transform)

@@ -1,16 +1,16 @@
 """Pipeline (model) families.
 
 Four compute strategies for the identical codec math, mirroring the
-reference's four binaries (makefile:4) but each re-designed for TPU:
+reference's four binaries (makefile:4), each re-designed for JAX:
 
 - ``cublas``   per-block sequential contraction via lax.map — the deliberately
                launch-bound analog of main_cublass.cu's host GEMM loop.
-- ``cublas2`` / ``batched``  whole-image batched MXU einsum — the TPU answer
-               to main_cublass_2.cu's block-diagonal whole-image GEMM.
-- ``fast``     Haweel integer core on the MXU in int8 with float row-norm
-               scaling — the multiplierless spirit of main_fastAppr.cu.
+- ``cublas2`` / ``batched``  whole-image batched einsum — the answer to
+               main_cublass_2.cu's block-diagonal whole-image GEMM.
+- ``fast``     Haweel integer core in int8 with float row-norm scaling —
+               the multiplierless spirit of main_fastAppr.cu.
 - ``hp``       flagship fused Pallas kernel (level-shift + transform +
-               quantize in one VMEM-resident pass) — the analog of
+               quantize in one register-resident pass) — the analog of
                main_newAppr.cu's fused shared-memory kernel.
 """
 

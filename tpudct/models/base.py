@@ -66,7 +66,7 @@ class Pipeline(abc.ABC):
 
         8x8 blocks are independent, so a batch is just a taller image: the
         (B, H, W) stack folds to (B*H, W), runs through the single-image
-        path (one kernel launch for the whole batch — the TPU-native answer
+        path (one kernel launch for the whole batch — the answer
         to 'more images' is 'a bigger grid', exactly like the reference's
         scaling axis being image size, SURVEY.md §5), and unfolds.
         """

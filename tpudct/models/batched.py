@@ -1,10 +1,10 @@
-"""`batched` (alias `cublas2`): whole-image batched MXU contraction.
+"""`batched` (alias `cublas2`): whole-image batched contraction.
 
-TPU-native equivalent of main_cublass_2.cu's strategy — one device-wide
+Plain-XLA equivalent of main_cublass_2.cu's strategy — one device-wide
 operation per transform instead of per-block launches.  Where the reference
 expands T to an N x N block-diagonal matrix and runs two O(N^3) whole-image
 GEMMs over mostly zeros (main_cublass_2.cu:225-235, upgrade_T_matrix
-utils_kernels.cu:60-69), the TPU version contracts the (H//8, 8, W//8, 8)
+utils_kernels.cu:60-69), this version contracts the (H//8, 8, W//8, 8)
 block-grid view with the 8x8 T directly: identical math, O(N^2 * 8) FLOPs,
 and XLA fuses level shift + quantize into the same HBM pass.
 """

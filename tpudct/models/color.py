@@ -21,7 +21,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -32,7 +31,9 @@ from tpudct.ops.rounding import round_half_away
 from tpudct.utils.color import (
     downsample_420,
     downsample_422,
+    merge_u8,
     rgb_to_ycbcr,
+    split_u8,
     upsample_420,
     upsample_422,
     ycbcr_to_rgb,
@@ -222,54 +223,37 @@ def decode_color_scaled(
     f_r = factor // 2 if mode == "420" else factor
     f_c = factor // 2 if mode in ("420", "422") else factor
 
-    # Fast path: ONE fused Pallas kernel per plane pass (decode + exact
-    # integer box pool; ops.scaled.scaled_decode_u8 documents the
-    # clamp/truncate contract delta and the 3.0-3.4x on-chip win).  Each
-    # plane pads to its own (8·f_r, 128·f_c) multiples so the fused
-    # kernel's lane-group geometry always holds (zero coefficient blocks
-    # decode to the level shift; pooled windows inside the crop never
-    # reach them).  Gate mirrors the gray CLI path; any ineligible plane
-    # drops the WHOLE stream to the f32 sweeps so the planes stay
-    # consistent.
-    from tpudct.kernels.hp_pallas import scaled_pad_align
-
-    y_al = scaled_pad_align(factor, factor)
-    c_al = scaled_pad_align(f_r, f_c)
-
-    def _u8_ok(plane, pcfg, al):
+    # Fast path: ONE fused kernel per plane pass (decode + exact integer
+    # box pool; ops.scaled.scaled_decode_u8 documents the clamp/truncate
+    # contract delta).  The planes are 8x8-aligned coefficient maps, which
+    # is all the kernel needs.  Any ineligible plane drops the WHOLE
+    # stream to the f32 sweeps so the planes stay consistent.
+    def _u8_ok(plane, pcfg):
         from tpudct.kernels import hp_pallas
-        from tpudct.ops.padding import kernel_padded_shape
         from tpudct.utils.serialize import _abs_bound
 
         return (
             hasattr(p, "decode_u8")
             and hp_pallas.supports_u8(
-                *kernel_padded_shape(*np.shape(plane), *al),
-                pcfg.q_scale, pcfg.transform, pcfg.q_table,
+                *np.shape(plane), pcfg.q_scale, pcfg.transform, pcfg.q_table,
             )
             and _abs_bound(np.asarray(plane)) <= 127
         )
 
-    if _u8_ok(planes["y"], lcfg, y_al) and all(
-        _u8_ok(planes[k], ccfg, c_al) for k in ("cb", "cr")
+    if _u8_ok(planes["y"], lcfg) and all(
+        _u8_ok(planes[k], ccfg) for k in ("cb", "cr")
     ):
-        from tpudct.ops.padding import pad_coeffs_to_kernel
         from tpudct.ops.scaled import scaled_decode_u8
 
-        ypad, _ = pad_coeffs_to_kernel(
-            jnp.asarray(planes["y"], jnp.int8), *y_al
-        )
-        y = scaled_decode_u8(p, ypad, lcfg, factor)[:hs, :ws]
-        cbpad, _ = pad_coeffs_to_kernel(
-            jnp.asarray(planes["cb"], jnp.int8), *c_al
-        )
-        crpad, _ = pad_coeffs_to_kernel(
-            jnp.asarray(planes["cr"], jnp.int8), *c_al
-        )
+        y = scaled_decode_u8(
+            p, jnp.asarray(planes["y"], jnp.int8), lcfg, factor
+        )[:hs, :ws]
+        cb8 = jnp.asarray(planes["cb"], jnp.int8)
+        cr8 = jnp.asarray(planes["cr"], jnp.int8)
         cc = scaled_decode_u8(
-            p, jnp.concatenate([cbpad, crpad], axis=0), ccfg, f_r, f_c
+            p, jnp.concatenate([cb8, cr8], axis=0), ccfg, f_r, f_c
         )
-        phs = cbpad.shape[0] // f_r
+        phs = cb8.shape[0] // f_r
         cb = cc[:phs][:hs, :ws]
         cr = cc[phs:][:hs, :ws]
     else:
@@ -334,6 +318,10 @@ def _interleaved_f32(rgb):
     return rgb if layout == "interleaved" else jnp.moveaxis(rgb, 0, -1)
 
 
+# u8 color path alignment: 4:2:0 halves both dims, and the halves must stay
+# 8x8-aligned for the codec
+_ALIGN = 16
+
 # stacked-chroma (cb|cr vertically) codec geometry per mode, as a function
 # of the luma (h, w): 420 -> (h, w/2); 422 -> (2h, w/2); 444 -> (2h, w)
 _CHROMA_STACK = {
@@ -347,10 +335,10 @@ def supports_color_u8(
     p: Pipeline, cfg: CodecConfig, h: int, w: int, subsample="420"
 ) -> bool:
     """Gate for the fused u8 color path: the pipeline must expose the
-    u8-native codec (hp), all three planes must meet the int8 kernel's
-    tiling (the two chroma planes ride the codec stacked vertically),
-    and the coefficients must fit int8 against BOTH quantization
-    tables.  All three chroma modes have u8 kernels."""
+    u8-native codec (hp), the dims must tile by 16 (so every chroma mode's
+    planes stay 8x8-aligned; the two chroma planes ride the codec stacked
+    vertically), and the coefficients must fit int8 against BOTH
+    quantization tables."""
     from tpudct.kernels import hp_pallas
 
     ch, cw = _CHROMA_STACK[normalize_subsample(subsample)](h, w)
@@ -358,21 +346,12 @@ def supports_color_u8(
         hasattr(p, "encode_u8")
         and cfg.deadzone == 0.5  # the fused kernels bake the 0.5 rule;
         #                          deadzone encodes ride the f32 path
-        and h % 64 == 0
-        and w % 256 == 0
+        and h > 0 and w > 0
+        and h % _ALIGN == 0
+        and w % _ALIGN == 0
         and hp_pallas.supports_u8(h, w, cfg.q_scale, cfg.transform, "luma")
         and hp_pallas.supports_u8(ch, cw, cfg.q_scale, cfg.transform, "chroma")
     )
-
-
-def _u8_kernels(mode):
-    from tpudct.kernels import color_pallas as cp
-
-    return {
-        "420": (cp.color_split_420_u8, cp.color_merge_420_u8),
-        "422": (cp.color_split_422_u8, cp.color_merge_422_u8),
-        False: (cp.color_split_444_u8, cp.color_merge_444_u8),
-    }[mode]
 
 
 def _chroma_plane_shape(mode, h, w):
@@ -386,11 +365,9 @@ def _chroma_plane_shape(mode, h, w):
 
 
 def color_kernel_shape(h: int, w: int):
-    """Kernel-grid padding for the fused u8 color path: H to 64-multiples,
-    W to 256-multiples (the supports_color_u8 alignment, valid for every
-    chroma mode).  Camera sizes cost <=1.6% extra pixels (4032x3024 ->
-    4032x3072)."""
-    return (max(64, -(-h // 64) * 64), max(256, -(-w // 256) * 256))
+    """Padding for the fused u8 color path: both dims to multiples of 16
+    (the supports_color_u8 alignment, valid for every chroma mode)."""
+    return (max(_ALIGN, -(-h // _ALIGN) * _ALIGN), max(_ALIGN, -(-w // _ALIGN) * _ALIGN))
 
 
 def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample: bool = True):
@@ -415,9 +392,7 @@ def encode_color_u8(p: Pipeline, rgb_u8, cfg: CodecConfig, subsample: bool = Tru
         )
     if (hk, wk) != (h, w):
         x = jnp.pad(x, ((0, 0), (0, hk - h), (0, wk - w)), mode="edge")
-    split, _merge = _u8_kernels(mode)
-    interp = cfg.interpret or jax.default_backend() != "tpu"
-    y, cb, cr = split(x, interpret=interp)
+    y, cb, cr = split_u8(x, mode)
     cy = p.encode_u8(y, _luma_cfg(cfg))
     cc = p.encode_u8(jnp.concatenate([cb, cr], axis=0), _chroma_cfg(cfg))
     ph = cb.shape[0]
@@ -475,9 +450,7 @@ def decode_color_u8(p: Pipeline, planes: dict, meta: dict, cfg: CodecConfig):
     )
     y = p.decode_u8(yk, _luma_cfg(cfg))
     cc = p.decode_u8(jnp.concatenate([cbk, crk], axis=0), _chroma_cfg(cfg))
-    _split, merge = _u8_kernels(mode)
-    interp = cfg.interpret or jax.default_backend() != "tpu"
-    rgb = merge(y, cc[:chk], cc[chk:], interpret=interp)
+    rgb = merge_u8(y, cc[:chk], cc[chk:], mode)
     return jnp.moveaxis(rgb, 0, -1)[:h, :w]
 
 
@@ -597,8 +570,6 @@ def encode_color_batch_auto(
     if not metas:
         return results
 
-    interp = cfg.interpret or jax.default_backend() != "tpu"
-    split, _merge = _u8_kernels(mode)
     keys = [x.shape[2] for _, x, _, _ in metas]
     sizes = [x.size for _, x, _, _ in metas]
     for _wk, indices in _stack_groups(keys).items():
@@ -608,7 +579,7 @@ def encode_color_batch_auto(
                 if len(chunk) == 1
                 else np.concatenate([metas[j][1] for j in chunk], axis=1)
             )
-            y, cb, cr = split(jnp.asarray(stacked), interpret=interp)
+            y, cb, cr = split_u8(jnp.asarray(stacked), mode)
             cy = np.asarray(p.encode_u8(y, _luma_cfg(cfg)))
             ph = cb.shape[0]
             cc = np.asarray(
@@ -684,8 +655,6 @@ def decode_color_batch_auto(
             for _, yp, _, _, mode, cfg, _, _ in metas]
     sizes = [yp.size * 3 for _, yp, _, _, _, _, _, _ in metas]
     for (_wk, mode, cfg), indices in _stack_groups(keys).items():
-        interp = cfg.interpret or jax.default_backend() != "tpu"
-        _split, merge = _u8_kernels(mode)
         for chunk in _chunk(indices, sizes, max_pixels):
             ys = np.concatenate([metas[j][1] for j in chunk], axis=0)
             cbs = np.concatenate([metas[j][2] for j in chunk], axis=0)
@@ -697,7 +666,7 @@ def decode_color_batch_auto(
             )
             ph = cbs.shape[0]
             rgb = np.asarray(
-                jnp.moveaxis(merge(y, cc[:ph], cc[ph:], interpret=interp), 0, -1)
+                jnp.moveaxis(merge_u8(y, cc[:ph], cc[ph:], mode), 0, -1)
             )
             y0 = 0
             for j in chunk:

@@ -2,7 +2,7 @@
 
 Faithful *strategy* analog of main_cublass.cu, which loops on the host over
 every 8x8 block issuing two cublasSgemm calls each (main_cublass.cu:225-243 —
-2,097,152 GEMM launches at 8192^2).  The TPU analog of a serialized per-block
+2,097,152 GEMM launches at 8192^2).  The JAX analog of a serialized per-block
 schedule is ``lax.scan`` over the block batch: one compiled step, executed
 once per block in sequence.  It exists for benchmark comparability (the
 reference's >96% improvement claim is measured against exactly this shape of

@@ -1,10 +1,10 @@
-"""`fast`: Haweel integer core on the MXU (fastApprDCT re-design).
+"""`fast`: Haweel integer core in int8 (fastApprDCT re-design).
 
 main_fastAppr.cu ports Haweel-2016 to the GPU with a thread-per-block-row
 kernel (main_fastAppr.cu:164-228) but still multiplies by the *float* T.
-The TPU-native design instead exploits the factorization T = D @ Ts
+This design instead exploits the factorization T = D @ Ts
 (constants.py): the core contraction ``Ts @ Xb @ Ts.T`` runs entirely in
-int8 -> int32 on the MXU — the true "multiplierless" add/shift spirit, since
+int8 -> int32 — the true "multiplierless" add/shift spirit, since
 Ts entries are {0, +-1, +-2} — and the row norms fold into a single
 rank-one float scale ``outer(d, d)`` fused with quantization.
 

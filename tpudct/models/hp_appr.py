@@ -1,17 +1,16 @@
 """`hp`: flagship pipeline backed by the fused Pallas kernels.
 
-TPU re-design of main_newAppr.cu's HpApprDCT (kernels at
-main_newAppr.cu:177-250, wrappers :252-332).  See tpudct.kernels.hp_pallas
-for the kernel formulation and the measured perf rationale (int8 exact
-core, buffer aliasing, u8-native variants).  On non-TPU backends (e.g. the
-forced-8-device CPU test mesh) the kernels run in Pallas interpreter mode;
-images whose width doesn't tile by 128 lanes fall back to the
-mathematically identical `batched` einsum path.
+Re-design of main_newAppr.cu's HpApprDCT (kernels at main_newAppr.cu:177-250,
+wrappers :252-332).  See tpudct.kernels.hp_pallas for the kernel
+formulation (exact integer core, u8-native variants).  How the kernels run
+(compiled on the GPU, interpreted on the CPU) is decided by
+tpudct.kernels.resolve_interpret.  The u8 entry points take any 8x8-aligned
+plane; the float entry points (dct, roundtrip) run the kernel only at
+widths that are multiples of F32_ENCODE_WIDTH and the mathematically
+identical `batched` einsum path otherwise (see there).
 """
 
 from __future__ import annotations
-
-import jax
 
 from tpudct.config import CodecConfig
 from tpudct.kernels import hp_pallas
@@ -21,8 +20,13 @@ from tpudct.models.batched import BatchedPipeline
 _batched = BatchedPipeline()
 
 
-def _interpret(cfg: CodecConfig) -> bool:
-    return cfg.interpret or jax.default_backend() != "tpu"
+#: The float entry points run the kernel only on planes whose width is a
+#: multiple of this, and the `batched` einsum encode on the others.  The
+#: kernel's integer core truncates float pixels to integers, so the choice
+#: shows in the coefficients of float planes (the color path below the u8
+#: gate, ``run --corners``): this rule fixed the bytes of those containers,
+#: and keeping it keeps them.  models/dispatch.py pads its float path to it.
+F32_ENCODE_WIDTH = 128
 
 
 def _int_core(cfg: CodecConfig) -> bool:
@@ -31,6 +35,18 @@ def _int_core(cfg: CodecConfig) -> bool:
     from tpudct.constants import get_transform
 
     return cfg.exact_int_core and get_transform(cfg.transform).has_integer_core
+
+
+def _kernel_encodes(image, cfg: CodecConfig) -> bool:
+    """Whether dct/roundtrip run the kernel on this float plane."""
+    h, w = image.shape
+    return (
+        hp_pallas.supports(h, w)
+        and w % F32_ENCODE_WIDTH == 0
+        # deadzone quantization (encode-side rate knob) rides the einsum
+        # quantizer; the fused kernels bake the 0.5 rule
+        and cfg.deadzone == 0.5
+    )
 
 
 def _decode_prec(cfg: CodecConfig) -> str:
@@ -54,10 +70,7 @@ class HpApprPipeline(Pipeline):
 
         if not jnp.issubdtype(image.dtype, jnp.floating):
             image = image.astype(jnp.float32)
-        h, w = image.shape
-        if not hp_pallas.supports(h, w) or cfg.deadzone != 0.5:
-            # deadzone quantization (encode-side rate knob) rides the
-            # einsum quantizer; the fused kernels bake the 0.5 rule
+        if not _kernel_encodes(image, cfg):
             return _batched.dct(image, cfg)
         return hp_pallas.hp_dct(
             image,
@@ -65,7 +78,7 @@ class HpApprPipeline(Pipeline):
             q_table=cfg.q_table,
             band_rows=cfg.band_rows,
             tile_cols=cfg.tile_cols,
-            interpret=_interpret(cfg),
+            interpret=cfg.interpret,
             int_core=_int_core(cfg),
             transform=cfg.transform,
         )
@@ -80,7 +93,7 @@ class HpApprPipeline(Pipeline):
             q_table=cfg.q_table,
             band_rows=cfg.band_rows,
             tile_cols=cfg.tile_cols,
-            interpret=_interpret(cfg),
+            interpret=cfg.interpret,
             decode_precision=_decode_prec(cfg),
             transform=cfg.transform,
         )
@@ -93,9 +106,8 @@ class HpApprPipeline(Pipeline):
 
         if not jnp.issubdtype(image.dtype, jnp.floating):
             image = image.astype(jnp.float32)
-        h, w = image.shape
-        if not hp_pallas.supports(h, w) or cfg.deadzone != 0.5:
-            return super().roundtrip(image, cfg)  # deadzone: einsum path
+        if not _kernel_encodes(image, cfg):
+            return super().roundtrip(image, cfg)
         c, r = hp_pallas.hp_roundtrip(
             image,
             q_scale=cfg.q_scale,
@@ -103,7 +115,7 @@ class HpApprPipeline(Pipeline):
             retain_k=cfg.retain_k,
             band_rows=cfg.band_rows,
             tile_cols=cfg.tile_cols,
-            interpret=_interpret(cfg),
+            interpret=cfg.interpret,
             int_core=_int_core(cfg),
             decode_precision=_decode_prec(cfg),
             transform=cfg.transform,
@@ -114,7 +126,7 @@ class HpApprPipeline(Pipeline):
     # everything through f32 on the host, utils.cu:10-15) ----------------
 
     def encode_u8(self, image_u8, cfg: CodecConfig):
-        """uint8 image -> int8 coefficient map (4x less HBM traffic)."""
+        """uint8 image -> int8 coefficient map."""
         h, w = image_u8.shape
         if not hp_pallas.supports_u8(h, w, cfg.q_scale, cfg.transform, cfg.q_table):
             bound = hp_pallas._max_coeff(cfg.transform, cfg.q_table)
@@ -124,27 +136,27 @@ class HpApprPipeline(Pipeline):
                 else f"q_scale>={bound / 127.0:.2f} for int8 coefficients"
             )
             raise ValueError(
-                f"u8 path needs h%32==0, w%128==0 and {why} "
+                f"u8 path needs h%8==0, w%8==0 and {why} "
                 f"(got {h}x{w}, q_scale={cfg.q_scale}, transform={cfg.transform})"
             )
         return hp_pallas.hp_encode_u8(
             image_u8, q_scale=cfg.q_scale, q_table=cfg.q_table, retain_k=cfg.retain_k,
             band_rows=cfg.band_rows, tile_cols=cfg.tile_cols,
-            interpret=_interpret(cfg), transform=cfg.transform,
+            interpret=cfg.interpret, transform=cfg.transform,
         )
 
     def decode_u8(self, coeffs_i8, cfg: CodecConfig):
         """int8 coefficient map -> uint8 reconstruction."""
         h, w = coeffs_i8.shape
-        if h % 32 or w % 128:
+        if not hp_pallas.supports(h, w):
             raise ValueError(
-                f"u8 decode path needs h%32==0 and w%128==0, got {h}x{w}; "
+                f"u8 decode path needs h%8==0 and w%8==0, got {h}x{w}; "
                 "use idct() + to_uint8 for other shapes"
             )
         return hp_pallas.hp_decode_u8(
             coeffs_i8, q_scale=cfg.q_scale, q_table=cfg.q_table,
             band_rows=cfg.band_rows, tile_cols=cfg.tile_cols,
-            interpret=_interpret(cfg),
+            interpret=cfg.interpret,
             decode_precision=_decode_prec(cfg),
             transform=cfg.transform,
         )
@@ -170,7 +182,7 @@ class HpApprPipeline(Pipeline):
         return hp_pallas.hp_roundtrip_u8(
             image_u8, q_scale=cfg.q_scale, q_table=cfg.q_table, retain_k=cfg.retain_k,
             band_rows=cfg.band_rows, tile_cols=cfg.tile_cols,
-            interpret=_interpret(cfg),
+            interpret=cfg.interpret,
             decode_precision=_decode_prec(cfg),
             transform=cfg.transform,
         )

@@ -2,9 +2,9 @@
 
 The reference never materializes a block layout — every CUDA kernel indexes
 the flat (H, W) image with block arithmetic (e.g. main_newAppr.cu:177-211
-maps one 8x8 thread block onto one 8x8 image block).  On TPU the idiomatic
-equivalent is a reshape/transpose into a batched (nb, 8, 8) tensor that XLA
-lowers to cheap layout ops and that feeds batched MXU contractions.
+maps one 8x8 thread block onto one 8x8 image block).  In XLA the idiomatic
+equivalent is a reshape/transpose into a batched (nb, 8, 8) tensor that
+feeds batched contractions.
 """
 
 from __future__ import annotations
@@ -45,8 +45,8 @@ def as_block_grid(x, bs: int = BLOCK_SIZE):
     """(H, W) -> (H//bs, bs, W//bs, bs) view used by einsum pipelines.
 
     Avoids the transpose in :func:`blockify`: XLA contracts directly over the
-    in-block axes, so the whole-image DCT is one batched MXU matmul with no
-    data movement — the TPU answer to `upgrade_T_matrix`'s O(N^3) whole-image
+    in-block axes, so the whole-image DCT is one batched matmul with no
+    data movement — the answer to `upgrade_T_matrix`'s O(N^3) whole-image
     GEMM (main_cublass_2.cu:225-235).
     """
     h, w = x.shape

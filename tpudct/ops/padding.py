@@ -31,47 +31,16 @@ def pad_to_blocks(x, bs: int = BLOCK_SIZE):
     return jnp.pad(x, ((0, ph - h), (0, pw - w)), mode="edge"), (h, w)
 
 
-def kernel_padded_shape(h: int, w: int, row_align: int, lane: int = 128):
-    """Shape after padding to the fused-kernel tile grid.
-
-    The Pallas codec kernels need the lane (minor) dim to tile by 128 and
-    the sublane dim by `row_align` (8 for the f32 kernels, 32 for the
-    int8/u8 family — hp_pallas.supports/supports_u8).  The 8x8 transform
-    is block-local, so padding whole extra blocks changes nothing inside
-    the original region; for camera-sized images the overhead is <=1.6%
-    extra pixels (4032x3024 -> 4032x3072).
-    """
-    return (
-        max(row_align, (h + row_align - 1) // row_align * row_align),
-        max(lane, (w + lane - 1) // lane * lane),
-    )
-
-
-def pad_to_kernel(x, row_align: int, lane: int = 128):
-    """Edge-replicate pad an (H, W) image up to fused-kernel tile multiples.
-
-    Same contract as :func:`pad_to_blocks` but aligned for the Pallas
-    kernels, so arbitrary (e.g. camera) sizes ride the fast path instead
-    of the ~6x-slower einsum fallback.  Returns (padded, (h, w)).
-    """
-    h, w = x.shape
-    ph, pw = kernel_padded_shape(h, w, row_align, lane)
-    if (ph, pw) == (h, w):
-        return x, (h, w)
-    return jnp.pad(x, ((0, ph - h), (0, pw - w)), mode="edge"), (h, w)
-
-
-def pad_coeffs_to_kernel(c, row_align: int, lane: int = 128):
-    """Zero-pad a quantized-coefficient map up to kernel tile multiples.
+def pad_coeffs_to_blocks(c, bs: int = BLOCK_SIZE):
+    """Zero-pad a quantized-coefficient map up to block multiples.
 
     All-zero 8x8 coefficient blocks decode to the constant level shift
     (+128), so a zero-padded map decodes block-identically to the
     unpadded one on the original region and the pad is cropped away.
-    Lets any 8-aligned stream (e.g. a JPEG coefficient import) ride the
-    fused decode kernels.  Returns (padded, (h, w)).
+    Returns (padded, (h, w)).
     """
     h, w = c.shape
-    ph, pw = kernel_padded_shape(h, w, row_align, lane)
+    ph, pw = padded_shape(h, w, bs)
     if (ph, pw) == (h, w):
         return c, (h, w)
     return jnp.pad(c, ((0, ph - h), (0, pw - w))), (h, w)

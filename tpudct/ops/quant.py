@@ -30,11 +30,9 @@ def _q_for(x, q_scale: float, q_table: str = "luma"):
 
 def _rowwise(x, tile8x8, op):
     """Apply ``op(x, tile)`` with an (8, 8) tile broadcast per block position,
-    WITHOUT the (H/8, 8, W/8, 8) block-grid view: splitting the lane (minor)
-    dimension into 8-wide pieces forces an expensive relayout on TPU
-    (measured ~17 ms of a 22 ms `batched` DCT at 8192²).  The (H/8, 8, W)
-    view keeps lanes intact — the reshape is free — and the tile becomes a
-    cheap (8, W) row pattern."""
+    WITHOUT the (H/8, 8, W/8, 8) block-grid view: the (H/8, 8, W) view
+    keeps the minor dimension intact — the reshape is free — and the tile
+    becomes a cheap (8, W) row pattern."""
     h, w = x.shape
     row = jnp.tile(tile8x8, (1, w // BLOCK_SIZE))  # (8, W)
     g = x.reshape(h // BLOCK_SIZE, BLOCK_SIZE, w)

@@ -32,18 +32,15 @@ an upsample-then-downsample round trip (models/color.py
 decode_color_scaled).  Factor 1 degenerates to the full inverse
 (B = T^T), so the same code path covers "no scaling on this axis".
 
-TPU mapping: like ops/transform.py the sweeps run at lane width when the
-axis is a multiple of 128 — ``kron(I_16, B)`` is a (16m, 128) operand, a
-K=128 contraction the MXU tiles well — and fall back to the 8-wide
-einsum for small/ragged planes (scaled outputs are small; the fallback's
-relayout cost is irrelevant here).
+Like ops/transform.py the sweeps run as 128-wide GEMMs when the axis is a
+multiple of 128 (``kron(I_16, B)`` is a (16m, 128) operand) and fall back
+to the 8-wide einsum for small/ragged planes.
 """
 
 from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -225,27 +222,12 @@ def scaled_shape_m8(orig: int, m: int) -> int:
     return -(-orig * m // _BS)
 
 
-@functools.lru_cache(maxsize=8)
-def _pool01_lane(fc: int) -> np.ndarray:
-    """(128, 128/fc) block 0/1 lane-pooling matrix: column j sums lanes
-    j*fc .. j*fc+fc-1."""
-    m = np.zeros((_LANE, _LANE // fc), np.float32)
-    for j in range(_LANE // fc):
-        m[j * fc : (j + 1) * fc, j] = 1.0
-    return m
-
-
 def box_pool_u8(x_u8, f_rows: int, f_cols: int | None = None):
     """Exact f x f box average of a uint8 raster -> float32.
 
-    Integer-exact and relayout-free at scale: the LANE (minor) direction
-    pools via an MXU dot against a 0/1 block matrix — u8 values are
-    bf16-exact and the MXU accumulates in f32, so window sums are exact
-    integers (lane-strided slices measured ~1.5 ms of relayout at 8192²;
-    the dot is ~0.04 ms) — and the SUBLANE direction pools with
-    major-axis strided adds (cheap: whole-row moves).  The final
-    1/(f_r*f_c) is a power-of-two multiply, exact.  Requires dims
-    divisible by the factors (kernel-padded maps always are)."""
+    Strided integer adds (window sums are exact integers), then the
+    power-of-two 1/(f_r*f_c) multiply, exact.  Requires dims divisible by
+    the factors (8x8-aligned maps always are)."""
     fc = f_rows if f_cols is None else f_cols
     h, w = x_u8.shape
     if h % f_rows or w % fc:
@@ -253,36 +235,24 @@ def box_pool_u8(x_u8, f_rows: int, f_cols: int | None = None):
             f"box_pool_u8 needs dims divisible by the factors, got "
             f"{h}x{w} at ({f_rows}, {fc})"
         )
-    if fc > 1 and w % _LANE == 0:
-        # direct u8->bf16 convert (exact: u8 <= 255 < 2^8 mantissa); the
-        # i32 hop is a MOSAIC constraint only — in XLA it measured +0.8 ms
-        # of extra materialization at 8192² (pool variant A/B, round 3)
-        xb = jnp.asarray(x_u8).astype(jnp.bfloat16)
-        m = jnp.asarray(_pool01_lane(fc), jnp.bfloat16)
-        s = jax.lax.dot_general(
-            xb.reshape(h * (w // _LANE), _LANE), m,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ).reshape(h, w // fc)
-    else:
-        x = jnp.asarray(x_u8, jnp.int32)
-        s = x[:, 0::fc].astype(jnp.float32)
-        for j in range(1, fc):
-            s = s + x[:, j::fc]
+    x = jnp.asarray(x_u8, jnp.int32)
+    s = x[:, 0::fc]
+    for j in range(1, fc):
+        s = s + x[:, j::fc]
     r = s[0::f_rows]
     for i in range(1, f_rows):
         r = r + s[i::f_rows]
-    return r * jnp.float32(1.0 / (f_rows * fc))
+    return r.astype(jnp.float32) * jnp.float32(1.0 / (f_rows * fc))
 
 
 def scaled_decode_u8(pipeline, coeffs_i8, cfg, factor: int,
                      f_cols: int | None = None, out_u8: bool = False):
-    """Fast-path fractional-scale decode: fused int8 full decode (the
-    0.29 ms/8192² kernel) + exact integer box pooling of its uint8
-    output -> (H/f, W/fc) float32 (``out_u8=True``: uint8, truncated
-    in-kernel — bit-identical to to_uint8 of the f32 result with 4x less
-    output traffic; the gray dispatch path uses it, while the color path
-    keeps f32 so the fractional averages feed the YCbCr merge unrounded).
+    """Fast-path fractional-scale decode: int8 full decode + exact integer
+    box pooling of its uint8 output -> (H/f, W/fc) float32
+    (``out_u8=True``: uint8, truncated in-kernel — bit-identical to
+    to_uint8 of the f32 result; the gray dispatch path uses it, while the
+    color path keeps f32 so the fractional averages feed the YCbCr merge
+    unrounded).
 
     CONTRACT DELTA vs :func:`scaled_decode`: this is the box average of
     the CLAMPED, ROUNDED full decode (the u8 image a viewer actually
@@ -293,30 +263,19 @@ def scaled_decode_u8(pipeline, coeffs_i8, cfg, factor: int,
     per pixel — plus clamping wherever the reconstruction overshoots
     [0, 255]: bounded by 1 LSB on natural images (overshoot is a
     ringing-edge phenomenon), up to the overshoot magnitude on
-    adversarial noise content.  For
-    thumbnailing — the use --scale exists for — the clamped semantic is
-    the faithful one.  Measured ~6x faster at 8192² (the einsum path
-    pays 6-pass `highest` sweeps plus a full f32 dequantized
-    intermediate; this path's decode is at its MXU floor and the pool is
-    traffic-bounded).  Requires the u8 decode geometry (h % 32,
-    w % 128) and the factors to divide the dims; callers fall back to
-    scaled_decode otherwise (the gate in cli/_decode_stream).
+    adversarial noise content.  For thumbnailing — the use --scale
+    exists for — the clamped semantic is the faithful one.  Requires an
+    8x8-aligned map; callers fall back to scaled_decode otherwise.
 
-    When the geometry allows (w % (128*fc) == 0 — callers pad to it) the
-    whole thing runs as ONE fused Pallas kernel
+    At the butterfly decode tier this runs as ONE fused kernel
     (kernels.hp_pallas.hp_scaled_decode_u8) that never stores the
-    full-size raster: 0.72/0.65 ms vs 2.76/1.96 ms composed at 8192²
-    f=2/f=8 (same-session slope A/B, benchmarks/scaled_ab.py), bit-exact
-    on the real chip; the composed decode_u8 + box_pool_u8 form is the
-    bit-identical fallback."""
-    import jax
-
+    full-size raster; the composed decode_u8 + box_pool_u8 form is the
+    bit-identical fallback for the other tiers."""
     from tpudct.kernels import hp_pallas
 
     fc = factor if f_cols is None else f_cols
     c = jnp.asarray(coeffs_i8, jnp.int8)
     h, w = c.shape
-    interp = cfg.interpret or jax.default_backend() != "tpu"
     # the fused kernel hardwires the butterfly inverse; any other
     # EFFECTIVE decode_precision (models.hp_appr._decode_prec: butterfly
     # needs the transform's integer core, else it falls back to
@@ -332,7 +291,7 @@ def scaled_decode_u8(pipeline, coeffs_i8, cfg, factor: int,
         return hp_pallas.hp_scaled_decode_u8(
             c, factor, fc, q_scale=cfg.q_scale, q_table=cfg.q_table,
             band_rows=cfg.band_rows, tile_cols=cfg.tile_cols,
-            interpret=interp, transform=cfg.transform, out_u8=out_u8,
+            interpret=cfg.interpret, transform=cfg.transform, out_u8=out_u8,
         )
     rec = pipeline.decode_u8(c, cfg)
     pooled = box_pool_u8(rec, factor, fc)

@@ -7,8 +7,7 @@ Semantics (identical across all four reference pipelines):
 
 T is orthogonal, so the inverse uses the transpose exactly.  The whole-image
 formulation here operates on the (H//8, 8, W//8, 8) block-grid view: one
-einsum = one batched MXU contraction over every block, the TPU-native
-replacement for both the per-block GEMM loop (main_cublass.cu:225-243) and
+einsum = one batched contraction over every block, the replacement for both the per-block GEMM loop (main_cublass.cu:225-243) and
 the block-diagonal whole-image GEMM (main_cublass_2.cu:228-235).
 """
 
@@ -87,17 +86,16 @@ def dct2_blocks(x, t=None, transform: str = "haweel"):
     `transform` selects a registry entry (constants.TRANSFORMS); an explicit
     `t` array overrides it (and takes the 8-wide fallback path).
 
-    When the image tiles by 128 in both dims, the contraction runs at lane
-    width with blockdiag_16(T) — identical math (the zeros contribute
-    nothing), but a K=128 contraction the MXU can actually tile: measured
-    ~12x faster than the K=8 einsum at 8192² (XLA handles tiny contraction
-    dims poorly).  This is the honest TPU incarnation of cublasDCTv2's
+    When the image tiles by 128 in both dims, the contraction runs as
+    128-wide GEMMs with blockdiag_16(T) — identical math (the zeros
+    contribute nothing) in shapes GEMM libraries tile well: cublasDCTv2's
     block-diagonal idea (upgrade_T_matrix, utils_kernels.cu:60-69) without
     its O(N³) zero-FLOPs.
     """
-    # precision="highest" everywhere: TPU default matmul precision is bf16
-    # passes, which costs ~1.0 absolute error on coefficients ~1000 — enough
-    # to corrupt quantizer decisions. The reference computes in true f32.
+    # precision="highest" everywhere: a default-precision f32 matmul may
+    # run in TF32 (or bf16 passes), which costs ~1.0 absolute error on
+    # coefficients ~1000 — enough to corrupt quantizer decisions.  The
+    # reference computes in true f32.
     h, w = x.shape
     if t is None and h % _LANE == 0 and w % _LANE == 0:
         return _lane_transform(x, _bdt_lane(transform), inverse=False)

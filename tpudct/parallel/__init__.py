@@ -6,8 +6,8 @@ cudaMemcpy (SURVEY.md §2 rows 19-20; no NCCL/MPI symbol exists in the
 tree).  Here distribution is first-class: images shard as row-bands of
 8-row multiples over a `jax.sharding.Mesh`, compute runs under
 `jax.shard_map` with zero halo (blocks are independent), metrics reduce
-with `psum` over ICI, and reassembly is an `all_gather` kept off the
-critical path.
+with `psum`, and reassembly is an XLA `all_gather` (NCCL on the GPU) kept
+off the critical path.
 """
 
 from tpudct.parallel.mesh import band_mesh, band_spec, distributed_init, grid_mesh, grid_spec
@@ -28,7 +28,6 @@ from tpudct.parallel.sharding import (
     sharded_codec_step_grid,
     gather,
 )
-from tpudct.parallel.ring import ring_all_gather, ring_decode_gather
 from tpudct.parallel.scaling import scaling_table
 
 __all__ = [
@@ -52,7 +51,5 @@ __all__ = [
     "sharded_serving_step",
     "sharded_codec_step_grid",
     "gather",
-    "ring_all_gather",
-    "ring_decode_gather",
     "scaling_table",
 ]

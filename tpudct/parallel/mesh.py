@@ -11,11 +11,11 @@ BAND_AXIS = "band"
 
 
 def distributed_init(coordinator: Optional[str] = None, **kw) -> None:
-    """Multi-host bring-up over DCN (`jax.distributed.initialize`).
+    """Multi-host bring-up (`jax.distributed.initialize`).
 
     No-op on a single host (or when already initialized).  After this,
-    `band_mesh()` spans every chip in the slice and the same shard_map'd
-    codec runs unchanged — host-count-agnostic by construction.
+    `band_mesh()` spans every device of every process and the same
+    shard_map'd codec runs unchanged — host-count-agnostic by construction.
     """
     try:
         if coordinator is not None:
@@ -43,7 +43,8 @@ def band_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
 
     Row-bands are the codec's natural parallel axis (SURVEY.md §5: the
     structural analog of sequence parallelism — zero-halo because 8x8
-    blocks are independent).  ICI carries the (only) collectives.
+    blocks are independent).  The only collectives are the reassembly
+    gathers and metric reductions.
     """
     if devices is None:
         devices = jax.devices()
@@ -70,10 +71,11 @@ def grid_mesh(
     """2-D (band, col) mesh: rows shard over 'band', columns over 'col'.
 
     8x8 blocks are independent in BOTH image dimensions, so a 2-D tile grid
-    is as zero-halo as row bands.  On hardware with a physical 2-D ICI
-    torus (e.g. a v5e 4x2 slice) this keeps each collective on a mesh ring
-    instead of serializing one long band ring.  Default shape: the
-    most-square factorization of the device count."""
+    is as zero-halo as row bands.  The cards of one host are joined all to
+    all by NVLink, so the mesh shape follows the algorithm alone: a 2-D
+    grid keeps each shard closer to square, which suits tall-and-wide
+    images whose row count alone does not split evenly.  Default shape:
+    the most-square factorization of the device count."""
     if devices is None:
         devices = jax.devices()
     if shape is None:

@@ -5,7 +5,7 @@ Design (SURVEY.md §7 M6): each device owns a contiguous band of image rows
 compute is the unmodified single-chip pipeline; collectives appear only in
 two places, both chosen to stay off the critical path:
 
-  * metrics: per-band partial sums reduced with `psum` over ICI — the image
+  * metrics: per-band partial sums reduced with `psum` — the image
     is never gathered to compute quality;
   * reassembly: an `all_gather` exists solely for producing host output.
 """
@@ -108,7 +108,7 @@ def sharded_codec_step(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh):
     """The framework's full distributed step (the `dryrun_multichip` target):
 
     band-local encode + decode + DISTRIBUTED quality metrics (psum'd partial
-    sums over ICI).  Returns ((coeffs, recon) band-sharded, metrics dict
+    sums).  Returns ((coeffs, recon) band-sharded, metrics dict
     replicated).  One jit graph; XLA overlaps the psum with band compute.
     """
 
@@ -185,7 +185,7 @@ def sharded_codec_step_grid(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh):
 
 def gather_recon(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh):
     """Variant that all_gathers the reconstruction inside the graph —
-    the explicit ICI reassembly collective (for callers that need the full
+    the explicit reassembly collective (for callers that need the full
     image on every device, e.g. subsequent replicated stages)."""
 
     def band_fn(x):
@@ -285,7 +285,7 @@ def sharded_color_step(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh):
     Per band: YCbCr split + 4:2:0 (2x2 pooling is band-local because bands
     are even-row aligned) -> luma plane vs Q, stacked chroma vs QC through
     the SAME per-band pipeline -> merge back to planar RGB.  Zero halo, no
-    collective on the compute path; RGB quality metrics psum over ICI.
+    collective on the compute path; RGB quality metrics psum across devices.
     Returns ((3, H, W) u8 recon band-sharded, metrics replicated)."""
     import dataclasses
 
@@ -390,10 +390,10 @@ def sharded_serving_step(pipeline: Pipeline, cfg: CodecConfig, mesh: Mesh):
     """Serving-tier data parallelism: a (B, H, W) uint8 batch sharded over
     the mesh, each device running its images through ONE fused u8 kernel
     launch (batch-as-taller-image, models/base.py roundtrip_batch), with
-    batch-wide quality metrics psum'd over ICI.
+    batch-wide quality metrics psum'd across devices.
 
-    This is the multi-chip composition of the single-chip serving number
-    (~75k 1024² images/s/chip): images are independent, so the only
+    This is the multi-card composition of the single-card serving path:
+    images are independent, so the only
     collectives are the metric reductions — throughput scales with the
     mesh.  Returns ((coeffs, recon) batch-sharded, metrics replicated)."""
     if not hasattr(pipeline, "roundtrip_u8"):

@@ -8,16 +8,16 @@ plus 4:2:0 chroma resampling, so a color image codes as one luma plane at
 full resolution and two chroma planes at quarter resolution against the
 chroma quantization table (constants.QC).
 
-Everything is jit-friendly jnp math on whole planes, written lane-aware:
-the 2x2 pooling is a free (H/2, 2, W) sublane reshape for rows plus a
-strided lane slice for columns — NEVER an (H/2, 2, W/2, 2) block view,
-whose lane-splitting relayout measured 4.6 ms/plane at 2048² on v5e vs
-0.06 ms for the strided form (83x; same perf rule as the codec kernels,
-see CLAUDE.md).
+Everything is jit-friendly jnp math on whole planes: the 2x2 pooling is
+strided slices, the 2x upsampling a broadcast-reshape (no gather), so XLA
+fuses each stage into one pass.
 """
 
 from __future__ import annotations
 
+import functools
+
+import jax
 import jax.numpy as jnp
 
 # ITU-T T.871 (JPEG full-range) BT.601 luma coefficients.
@@ -128,13 +128,15 @@ def upsample_422(plane, h: int, w: int):
     return _repeat_rows2(x.T).T[:h, :w]
 
 
-# ---- u8-native planar fast path --------------------------------------------
+# ---- u8-native planar split/merge of the band-sharded paths -----------------
 #
-# The float API above is layout-agnostic and general; the serving path wants
-# u8 end-to-end (4x less HBM traffic — the same argument as the codec's
-# u8-native kernels, kernels/hp_pallas.py).  Planar (3, H, W) layout keeps
-# every op a whole-plane elementwise/strided form; the interleaved boundary
-# costs one u8 transpose (~0.3 ms at 8192² on v5e, measured).
+# What parallel/sharding.py's color steps run (transform, then pool, then
+# one rounding).  The codec's own u8 stages below (split_u8/merge_u8) pool
+# first and use fixed-point luma: the two agree within +-1 at rounding
+# ties, and each decides the bytes of the containers its path writes
+# (save_color_sharded vs encode --color), so neither replaces the other
+# without changing one container format.  Planar (3, H, W) layout keeps
+# every op a whole-plane elementwise/strided form.
 
 
 def ycbcr_split_420_u8(rgb_planar_u8, subsample: bool = True):
@@ -173,3 +175,93 @@ def ycbcr_merge_420_u8(y_u8, cb_u8, cr_u8, h: int, w: int, subsample: bool = Tru
     r, g, b = rgb_from_ycbcr_planes(y, cb, cr)
     rgb = jnp.stack([r, g, b], axis=0)
     return jnp.clip(round_half_away(rgb), 0.0, 255.0).astype(jnp.uint8)
+
+
+# ---- the codec's u8 color stages ---------------------------------------------
+#
+# What encode_color_u8 / decode_color_u8 (models/color.py) run: whole-plane
+# XLA that fuses into one pass per stage.  The arithmetic is pinned (it
+# decides .tdcc bytes): chroma pools the level-shifted INTEGER channels
+# first (exact) and color-transforms the pooled planes — the mean commutes
+# with the affine map, so this sits in the same +-1 tie class as
+# :func:`ycbcr_split_420_u8`'s transform-then-pool order; luma is 16-bit
+# fixed point; the merge rounds with the truncating add form.
+
+_POOL = {  # chroma mode -> (row factor, column factor)
+    "420": (2, 2),
+    "422": (1, 2),
+    False: (1, 1),
+}
+
+
+def _luma_fx(ri, gi, bi):
+    """BT.601 luma in 16-bit fixed point: round(.299r + .587g + .114b) with
+    integer weights summing exactly to 65536 — an integer in [0, 255].
+    Differs from the f32 form by +-1 at rounding boundaries."""
+    return ((19595 * ri + 38470 * gi + 7471 * bi + 32768) >> 16).astype(jnp.uint8)
+
+
+def _to_u8_round(z):
+    """clip(round_half_away(z), 0, 255) -> u8, clip first (z >= 0 after the
+    clip, so the round is floor + compare)."""
+    zp = jnp.minimum(jnp.maximum(z, 0.0), 255.0)
+    f = jnp.floor(zp)
+    return (f + (zp - f >= 0.5).astype(jnp.float32)).astype(jnp.uint8)
+
+
+def _to_u8_trunc(z):
+    """clip + round-half-away as ONE truncating add-form cast, trunc(clip(z)
+    + 0.5).  Agrees with the compare form on the BT.601 inverse's whole
+    256^3 (y, cb, cr) input domain (merge outputs depend only on that
+    triple: chroma upsampling is replication)."""
+    zp = jnp.minimum(jnp.maximum(z, 0.0), 255.0)
+    return (zp + jnp.float32(0.5)).astype(jnp.int32).astype(jnp.uint8)
+
+
+def _pool_shifted(ch_i32, fr: int, fc: int):
+    """Mean of (fr, fc) windows of an integer channel, via exact integer
+    sums of the level-shifted values."""
+    s = ch_i32 - 128
+    if fr == 2:
+        s = s[0::2] + s[1::2]
+    if fc == 2:
+        s = s[:, 0::2] + s[:, 1::2]
+    return s.astype(jnp.float32) * (1.0 / (fr * fc)) + 128.0
+
+
+def _upsample(x, fr: int, fc: int):
+    """Nearest replication by (fr, fc)."""
+    h, w = x.shape
+    return jnp.broadcast_to(x[:, None, :, None], (h, fr, w, fc)).reshape(h * fr, w * fc)
+
+
+@functools.partial(jax.jit, static_argnames=("mode",))
+def split_u8(rgb_planar_u8, mode="420"):
+    """(3, H, W) u8 RGB -> (y (H, W), cb, cr) u8; chroma at (H/fr, W/fc)
+    for the mode's factors.  H and W must divide by the factors."""
+    fr, fc = _POOL[mode]
+    ri, gi, bi = (rgb_planar_u8[k].astype(jnp.int32) for k in range(3))
+    _y, cb, cr = ycbcr_from_rgb_planes(
+        *(_pool_shifted(c, fr, fc) for c in (ri, gi, bi))
+    )
+    return _luma_fx(ri, gi, bi), _to_u8_round(cb), _to_u8_round(cr)
+
+
+@functools.partial(jax.jit, static_argnames=("mode",))
+def merge_u8(y_u8, cb_u8, cr_u8, mode="420"):
+    """Inverse of :func:`split_u8` -> (3, H, W) u8 RGB (nearest chroma
+    upsampling; the -128 chroma shift applies at chroma resolution)."""
+    fr, fc = _POOL[mode]
+    h, w = y_u8.shape
+    if cb_u8.shape != (h // fr, w // fc) or cr_u8.shape != cb_u8.shape:
+        raise ValueError(
+            f"chroma planes must be ({h // fr}, {w // fc}) for a ({h}, {w}) "
+            f"luma plane, got {cb_u8.shape} / {cr_u8.shape}"
+        )
+    shifted = lambda c: _upsample(c.astype(jnp.int32) - 128, fr, fc).astype(jnp.float32)
+    y = y_u8.astype(jnp.float32)
+    cbc, crc = shifted(cb_u8), shifted(cr_u8)
+    r = y + (2.0 - 2.0 * _KR) * crc
+    b = y + (2.0 - 2.0 * _KB) * cbc
+    g = (y - _KR * r - _KB * b) / _KG
+    return jnp.stack([_to_u8_trunc(r), _to_u8_trunc(g), _to_u8_trunc(b)])

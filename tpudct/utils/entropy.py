@@ -29,9 +29,9 @@ _ZZ = np.array([
 
 
 def _lib() -> Optional[ctypes.CDLL]:
-    from tpudct.utils.imageio import _load_native
+    from tpudct.utils.imageio import _load_entropy
 
-    lib = _load_native()
+    lib = _load_entropy()
     if lib is None or not hasattr(lib, "tpudct_huff_encode"):
         return None
     if not getattr(lib, "_tpudct_huff_configured", False):
@@ -228,7 +228,7 @@ def _py_decode(data: bytes, h: int, w: int) -> np.ndarray:
 # (k in [1,2] / [3,5] / [6,10] / [11,20] / [21,35] / [36,63]; measured
 # -1.5% to -3.5% over v2 net of table overhead).  Sub-bit symbol costs +
 # positional modeling measure 4-9% smaller than the optimal-Huffman
-# stage on real coefficient maps (benchmarks/RESULTS_v5e.md).  The
+# stage on real coefficient maps (a size ratio, host-side).  The
 # encoder is version-ADAPTIVE: it costs both layouts from one histogram
 # pass (Shannon bits + table bytes) and emits the smaller — tiny maps
 # keep v2, where the three extra tables outweigh the model gain; both
@@ -259,10 +259,9 @@ def rans_encode(coeffs: np.ndarray, bands: int = 0, interleave: int = 0) -> byte
     bands: 0 (default) = size-based band count (~1 pthread band per
     4 Mpixel, up to 16); 1..16 = explicit count (tests / tuning).
     interleave: 0/1 (default) = single-state v2/v3 stream; 4 = the 4-way
-    interleaved v4 stream — an OPT-IN, not the default, because on this
+    interleaved v4 stream — an OPT-IN, not the default, because on a
     1-core host the interleaved decoder measured 0.72-0.89x the serial
-    one (the decode loop is throughput-bound, not state-chain-bound;
-    benchmarks/rans_interleave_ab.py + RESULTS_v5e.md carry the study).
+    one (the decode loop is throughput-bound, not state-chain-bound).
     Sizes differ by only the flags byte + three extra seeds per band;
     every decoder (both C workers and the Python fallback) reads both."""
     lib = _lib()

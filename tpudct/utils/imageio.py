@@ -1,11 +1,13 @@
 """JPEG I/O (grayscale + interleaved RGB).
 
 Primary path: the native C codec (csrc/jpeg_codec.c, libjpeg via ctypes) —
-the TPU-framework equivalent of the reference's host utils
+the framework's equivalent of the reference's host utils
 (load_jpeg_as_matrix utils.cu:38-95, save_grayscale_jpeg utils.cu:98-147).
-The shared library is built on demand with the system compiler (the image
-bakes g++/make but not pybind11).  Fallback: PIL, so the framework degrades
-gracefully where no C toolchain exists.
+The shared libraries are built on demand with the system compiler: the JPEG
+codec (needs libjpeg) and, separately, the entropy coders (csrc/entropy.c,
+no libjpeg), so a host without libjpeg headers still gets the native
+entropy stages.  Fallback: PIL, so the framework degrades gracefully where
+no C toolchain exists.
 """
 
 from __future__ import annotations
@@ -15,28 +17,47 @@ import io
 import os
 import pathlib
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent.parent / "csrc"
-_LIB_PATH = _CSRC / "libtpudct_jpeg.so"
+_LIB_PATH = _CSRC / "libdctjpeg.so"
+_ENTROPY_LIB_PATH = _CSRC / "libdctentropy.so"
 _lib: Optional[ctypes.CDLL] = None
 _lib_tried = False
+_elib: Optional[ctypes.CDLL] = None
+_elib_tried = False
+_lib_lock = threading.Lock()
 
 
-def _build_native(force: bool = False) -> bool:
-    """Build (or freshen) the shared library.  `make` owns the staleness
-    check — a fresh .so makes this a no-op, an edited jpeg_codec.c rebuilds
-    (the .so is a build artifact, not tracked in git)."""
-    if not (_CSRC / "jpeg_codec.c").exists():
-        return _LIB_PATH.exists()
+def _build_native(force: bool = False, target: pathlib.Path = _LIB_PATH) -> bool:
+    """Build (or freshen) one shared library.  `make` owns the staleness
+    check — a fresh .so makes this a no-op, an edited source rebuilds (the
+    .so files are build artifacts, not tracked in git)."""
+    if not (_CSRC / "Makefile").exists():
+        return target.exists()
     try:
-        cmd = ["make", "-C", str(_CSRC)] + (["-B"] if force else [])
+        cmd = ["make", "-C", str(_CSRC), target.name] + (["-B"] if force else [])
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except Exception:
-        pass  # no toolchain: fall through to whatever .so already exists
-    return _LIB_PATH.exists()
+        pass  # no toolchain / no libjpeg: fall through to any existing .so
+    return target.exists()
+
+
+def _load_entropy() -> Optional[ctypes.CDLL]:
+    """The native entropy coders (csrc/entropy.c), or None."""
+    global _elib, _elib_tried
+    with _lib_lock:
+        if not _elib_tried:
+            _elib_tried = True
+            if _build_native(target=_ENTROPY_LIB_PATH):
+                try:
+                    _elib = ctypes.CDLL(str(_ENTROPY_LIB_PATH))
+                except OSError:
+                    _elib = None
+        return _elib
 
 
 #: Must match csrc/jpeg_codec.c tpudct_abi_version() — bump BOTH when any
@@ -52,6 +73,14 @@ def _abi_ok(lib) -> bool:
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
+    # Coders call the loaders from thread pools: without the lock, threads
+    # arriving while the first one builds a library saw "no library" and
+    # silently chose another stage.
+    with _lib_lock:
+        return _load_native_locked()
+
+
+def _load_native_locked() -> Optional[ctypes.CDLL]:
     global _lib, _lib_tried
     if _lib_tried:
         return _lib
@@ -73,7 +102,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
             # Stale prebuilt library from older sources (missing or
             # mismatched ABI version): rebuild once.
             subprocess.run(
-                ["make", "-C", str(_CSRC), "-B"],
+                ["make", "-C", str(_CSRC), "-B", _LIB_PATH.name],
                 check=True, capture_output=True, timeout=120,
             )
             # dlopen caches by path/inode while the first handle is alive

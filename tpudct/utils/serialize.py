@@ -329,8 +329,7 @@ def _exact_auto(c: np.ndarray, level: int, rans_bands: int) -> tuple:
     zlib/lzma and the native coders (ctypes calls) release the GIL, so on
     multi-core hosts the trials overlap and this costs ~max(stage) instead
     of sum(stage).  The 1-core CI host cannot overlap threads — there it
-    is ≈ sum(stages) (benchmarks/RESULTS_v5e.md host-entropy table),
-    which is why large maps default to the sampled estimator instead."""
+    is ≈ sum(stages), which is why large maps default to the sampled estimator instead."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tpudct.utils import entropy
@@ -871,7 +870,7 @@ def _tune_malloc_for_slabs() -> None:
     so every decoded segment slab pays first-touch page faults on THIS
     host — measured ~3 s per 268 MB slab, the dominant cost of
     segment-at-a-time decode at archive scale (4.3-Gpix preview: ~100 s
-    of its 120 s; benchmarks/partial_at_scale.py).  Raising
+    of its 120 s).  Raising
     M_MMAP_THRESHOLD / M_TRIM_THRESHOLD keeps the arena, so successive
     slab allocations recycle warm pages (measured 3.7× on the segment
     walk).  Process-global and sticky by design — the cost is retaining

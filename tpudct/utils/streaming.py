@@ -1,17 +1,14 @@
 """Host-staged streaming codec for images larger than device memory.
 
 The reference is bounded by one GPU's memory (16 GB T4; it simply
-allocates whole-image buffers, main_newAppr.cu:94-95).  The TPU kernels
-here are row-band independent (8x8 blocks; zero halo — the same property
-the multi-chip sharding exploits), so an image of ANY height streams
-through the chip band by band: host slice -> device -> fused u8 kernel ->
-host assembly.  Peak device memory is one band's working set regardless
-of image size; outputs may be preallocated (e.g. numpy memmaps) so the
-HOST footprint can stay bounded too.
-
-Measured context: the fused u8 roundtrip runs ~85 Gpix/s on-device
-(RESULTS_v5e.md scale ladder up to 65536²); streaming throughput is
-bounded by host<->device transfer instead — the price of exceeding HBM.
+allocates whole-image buffers, main_newAppr.cu:94-95).  The kernels here
+are row-band independent (8x8 blocks; zero halo — the same property the
+multi-card sharding exploits), so an image of ANY height streams through
+the device band by band: host slice -> device -> fused u8 kernel -> host
+assembly.  Peak device memory is one band's working set regardless of
+image size; outputs may be preallocated (e.g. numpy memmaps) so the HOST
+footprint can stay bounded too.  Streaming throughput is bounded by
+host<->device transfer — the price of exceeding device memory.
 """
 
 from __future__ import annotations
@@ -37,8 +34,8 @@ def roundtrip_u8_streamed(
     Bitwise identical to the whole-image `roundtrip_u8` (bands align to
     32-row multiples, and blockwise math never crosses band edges).
     `out_coeffs`/`out_recon` accept preallocated arrays (memmap-friendly).
-    Requires the u8 path's geometry (H % 32 == 0, W % 128 == 0) and an
-    int8-safe config — same gate as the in-memory kernel."""
+    Requires an 8x8-aligned image and an int8-safe config — same gate as
+    the in-memory kernel."""
     import jax.numpy as jnp
 
     from tpudct.kernels import hp_pallas
@@ -50,7 +47,7 @@ def roundtrip_u8_streamed(
     h, w = img.shape
     if not hp_pallas.supports_u8(h, w, cfg.q_scale, cfg.transform, cfg.q_table):
         raise ValueError(
-            f"u8 streaming needs H % 32 == 0, W % 128 == 0 and an int8-safe "
+            f"u8 streaming needs H % 8 == 0, W % 8 == 0 and an int8-safe "
             f"config; got {h}x{w}, q_scale={cfg.q_scale}, "
             f"transform={cfg.transform}"
         )
@@ -111,7 +108,7 @@ def roundtrip_color_u8_streamed(
     band_rows = max(64, band_rows - band_rows % 64)
     if h == 0 or h % 64 or not supports_color_u8(pipeline, cfg, h, w):
         raise ValueError(
-            f"u8 color streaming needs H % 64 == 0, W % 256 == 0 and an "
+            f"u8 color streaming needs H % 64 == 0, W % 16 == 0 and an "
             f"int8-safe config; got {h}x{w}"
         )
     ys, cbs, crs, recs = [], [], [], []
@@ -169,7 +166,7 @@ def roundtrip_u8_streamed_sharded(
     if h % unit or not hp_pallas.supports_u8(h, w, cfg.q_scale, cfg.transform, cfg.q_table):
         raise ValueError(
             f"sharded u8 streaming needs H % {unit} == 0 (32-row multiple "
-            f"per device band), W % 128 == 0 and an int8-safe config; got "
+            f"per device band), W % 8 == 0 and an int8-safe config; got "
             f"{h}x{w} on a {n}-device mesh"
         )
     band_rows = max(unit, band_rows - band_rows % unit)
@@ -223,9 +220,9 @@ def roundtrip_u8_streamed_sharded(
 # bands, and lands in the output raster.  The reference is hard-bounded by
 # whole-image device buffers (main_newAppr.cu:94-95).
 
-#: In-memory device path is proven to 65536² = 2^32 pixels on one v5e
-#: (benchmarks/RESULTS_v5e.md scale ladder, 12 GB working set); anything
-#: LARGER auto-streams in the CLI.  `--band-rows` overrides explicitly.
+#: Images up to 2^32 pixels (65536², a ~12 GB u8 working set) take the
+#: in-memory device path; anything LARGER auto-streams in the CLI.
+#: `--band-rows` overrides explicitly.
 STREAM_PIXELS = 1 << 32
 
 
@@ -247,16 +244,15 @@ def encode_gray_streamed_bytes(
     `encode_gray_auto` + banded save of the same image (segments differ
     only in their row split; every loader reads both).
 
-    Edge-pads to the u8 kernel grid exactly like models/dispatch.py
-    (block-local transform: pixels in the original region unaffected) and
-    crops segments to the 8-aligned container shape.  Requires a
+    Edge-pads to the 8x8 block grid exactly like models/dispatch.py
+    (block-local transform: pixels in the original region unaffected).  Requires a
     u8-eligible config (integer-core transform, int8-safe q_scale)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import jax.numpy as jnp
 
     from tpudct.kernels import hp_pallas
-    from tpudct.ops.padding import kernel_padded_shape, padded_shape
+    from tpudct.ops.padding import padded_shape
     from tpudct.utils.serialize import (
         _CODEC_BANDED,
         _encode_payload,
@@ -283,9 +279,9 @@ def encode_gray_streamed_bytes(
             "(float inputs use the in-memory path)"
         )
     h, w = img.shape
-    hk, wk = kernel_padded_shape(h, w, 32, 128)
+    h8, w8 = padded_shape(h, w)
     if cfg.deadzone != 0.5 or not hp_pallas.supports_u8(
-        hk, wk, cfg.q_scale, cfg.transform, cfg.q_table
+        h8, w8, cfg.q_scale, cfg.transform, cfg.q_table
     ):
         raise ValueError(
             f"streamed encode needs an int8-safe config (integer-core "
@@ -294,28 +290,25 @@ def encode_gray_streamed_bytes(
             f"deadzone={cfg.deadzone}"
         )
     band_rows = max(32, band_rows - band_rows % 32)
-    h8, w8 = padded_shape(h, w)
     n_bands = -(-h8 // band_rows)
     if n_bands > 255:
         raise ValueError(
             f"{n_bands} bands exceed the banded container's 255-segment "
             f"limit; raise --band-rows to at least {-(-h8 // 255 // 32) * 32}"
         )
-    if (wk - w) > 0:
-        img = np.pad(img, ((0, 0), (0, wk - w)), mode="edge")
+    if w8 > w:
+        img = np.pad(img, ((0, 0), (0, w8 - w)), mode="edge")
 
     splits = []  # container rows per segment (8-aligned, sum = h8)
     futs = []
     with ThreadPoolExecutor(max_workers=2) as ex:
         for a in range(0, h8, band_rows):
             keep = min(band_rows, h8 - a)
-            # device band must meet the 32-row kernel alignment; rows of
-            # the final band beyond h8 are edge pad, cropped from the slab
-            dev_rows = -(-keep // 32) * 32
-            band = img[a : a + dev_rows]
-            if band.shape[0] < dev_rows:  # bottom kernel pad (edge rows)
+            # rows of the final band beyond h are edge pad to the 8x8 grid
+            band = img[a : a + keep]
+            if band.shape[0] < keep:
                 band = np.pad(
-                    band, ((0, dev_rows - band.shape[0]), (0, 0)), mode="edge"
+                    band, ((0, keep - band.shape[0]), (0, 0)), mode="edge"
                 )
             c = np.asarray(pipeline.encode_u8(jnp.asarray(band), cfg))
             # int16 like the in-memory path's _validate_map: the raw
@@ -643,19 +636,18 @@ def encode_color_streamed_bytes(
     of the same image."""
     from concurrent.futures import ThreadPoolExecutor
 
-    import jax
     import jax.numpy as jnp
 
     from tpudct.models.color import (
         _chroma_cfg,
         _chroma_plane_shape,
         _luma_cfg,
-        _u8_kernels,
         color_kernel_shape,
         normalize_subsample,
         supports_color_u8,
     )
     from tpudct.ops.padding import padded_shape
+    from tpudct.utils.color import split_u8
     from tpudct.utils.serialize import (
         _CODEC_BANDED,
         _encode_payload,
@@ -698,8 +690,6 @@ def encode_color_streamed_bytes(
             f"{n_bands} bands exceed the banded container's 255-segment "
             f"limit; raise --band-rows to at least {-(-hk // 255 // 64) * 64}"
         )
-    split, _merge = _u8_kernels(mode)
-    interp = cfg.interpret or jax.default_backend() != "tpu"
     lcfg, ccfg = _luma_cfg(cfg), _chroma_cfg(cfg)
 
     segs = {"y": [], "cb": [], "cr": []}  # (rows, future) per plane
@@ -718,7 +708,7 @@ def encode_color_streamed_bytes(
                     band, ((0, 0), (0, 0), (0, wk - band.shape[2])),
                     mode="edge",
                 )
-            y, cb, cr = split(jnp.asarray(band), interpret=interp)
+            y, cb, cr = split_u8(jnp.asarray(band), mode)
             cy = np.asarray(pipeline.encode_u8(y, lcfg))
             cc = np.asarray(pipeline.encode_u8(
                 jnp.concatenate([cb, cr], axis=0), ccfg
